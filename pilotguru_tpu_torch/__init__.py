@@ -2,9 +2,9 @@
 
 The JAX package ``pilotguru_tpu`` is the reference; this package mirrors its
 module names (``vo/features.py`` <-> ``pilotguru_tpu/vo/features.py``, ...).
-It imports ``torch`` and never ``jax``; from the reference it reuses only
-the JAX-free host packages ``pilotguru_tpu.formats`` and
-``pilotguru_tpu.video``. The kernels that the reference wrote in Pallas for
+It imports ``torch`` and never ``jax``, and no module of the reference
+either: the host formats and video readers it needs are its own copies
+(``formats/``, ``video/``). The kernels that the reference wrote in Pallas for
 the TPU are hand-written CUDA kernels for Hopper under ``csrc/``, built by
 ``cuda_lib``.
 

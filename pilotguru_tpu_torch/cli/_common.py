@@ -38,6 +38,21 @@ def setup_device(dtype_flag: str = "auto"):
     return device, {"float64": torch.float64, "float32": torch.float32}[dtype_flag]
 
 
+def patch_impl_from_env() -> str:
+    """The extractor's blurred-patch path from the reference's switch
+    PGTPU_PATCH_IMPL: 'fused' selects the fused blur + gather kernel (K3);
+    'auto', 'jnp', 'pallas' or unset keep blur-then-gather (K2), since the
+    jnp/Pallas choice is a TPU one."""
+    choice = os.environ.get("PGTPU_PATCH_IMPL") or "auto"
+    if choice == "fused":
+        return "fused"
+    if choice in ("auto", "jnp", "pallas"):
+        return "blur_then_gather"
+    raise ValueError(
+        f"PGTPU_PATCH_IMPL={choice!r}: want 'fused', 'auto', 'jnp' or 'pallas'"
+    )
+
+
 def add_dtype_flag(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "--dtype",

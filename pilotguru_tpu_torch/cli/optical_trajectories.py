@@ -5,14 +5,23 @@ and with pilotguru_tpu.cli.optical_trajectories. --vocabulary_file is
 parsed and validated but its index is unused (exhaustive Hamming matching
 replaces it). --visualize, --output_per_segment_videos and
 --visualize_live_port are not ported yet and raise NotImplementedError.
-The device comes from PILOTGURU_TPU_PLATFORM (cpu | cuda, default cuda).
+The device comes from PILOTGURU_TPU_PLATFORM (cpu | cuda, default cuda);
+PGTPU_PATCH_IMPL=fused selects the fused blur + patch-gather kernel, as in
+the reference. The tracker runs the reference CLI's configuration (loop
+closing on, global BA after a closure) except chunking: frames track one
+at a time.
 """
 
 from __future__ import annotations
 
 import sys
 
-from pilotguru_tpu_torch.cli._common import add_dtype_flag, make_parser, setup_device
+from pilotguru_tpu_torch.cli._common import (
+    add_dtype_flag,
+    make_parser,
+    patch_impl_from_env,
+    setup_device,
+)
 
 
 def main(argv=None):
@@ -43,6 +52,7 @@ def main(argv=None):
     add_dtype_flag(parser)
     args = parser.parse_args(argv)
     device, dtype = setup_device(args.dtype)
+    patch_impl = patch_impl_from_env()
 
     if args.vocabulary_file:
         from pilotguru_tpu_torch.vo.vocabulary import validate_dbow2_vocabulary
@@ -77,6 +87,7 @@ def main(argv=None):
         live_view_port=args.visualize_live_port,
         device=device,
         dtype=dtype,
+        patch_impl=patch_impl,
     )
     print(f"{segments} trajectory segment(s) from {consumed} frames")
     return 0

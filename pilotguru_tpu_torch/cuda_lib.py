@@ -1,11 +1,12 @@
 """Build and load the hand-written CUDA kernels of the port.
 
-Every ``*.cu`` file under ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which is
-loaded with ``ctypes``. The build happens at first use, from the sources in
-the checkout only, into ``pilotguru_tpu_torch/build/`` (git-ignored); the
-library's file name carries a digest of the sources, so an edited kernel is
-rebuilt and a stale library is never loaded.
+Every ``*.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` process
+for Hopper (``sm_90a``), all started together, into a shared library with a
+plain C interface, loaded with ``ctypes``. The build happens at first use,
+from the sources in the checkout only, into ``pilotguru_tpu_torch/build/``
+(git-ignored); each library's file name carries a digest of its source and
+the flags, so an edited kernel is rebuilt and a stale library is never
+loaded.
 
 Each C entry point takes raw device pointers, the sizes and the CUDA stream,
 launches on that stream without synchronising, and returns
@@ -43,13 +44,17 @@ _SIGNATURES = {
     "pg_fast_nms": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, ctypes.c_float, _VOIDP], _INT),
     # img, yx, out, h, w, k, radius, stream
     "pg_gather_patches": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _VOIDP], _INT),
+    # img, yx, taps, out, h, w, k, radius, blur radius, stream
+    "pg_blur_patch_gather": (
+        [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP], _INT
+    ),
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class BuildResult:
-    path: Path
-    seconds: float  # 0.0 when the library was already built
+    paths: tuple  # one library per source, in source order
+    seconds: float  # wall time of the parallel build; 0.0 when all were built
     log: str  # nvcc's output (register / shared-memory report)
 
 
@@ -73,42 +78,64 @@ def _sources():
     return sources
 
 
-def build() -> BuildResult:
-    """Compile csrc/*.cu into build/libpgkernels-<digest>.so (if needed)."""
-    sources = _sources()
-    digest = hashlib.sha256()
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
+def _target(src: Path) -> Path:
+    digest = hashlib.sha256(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / f"libpgkernels-{digest.hexdigest()[:16]}.so"
-    if target.exists():
-        return BuildResult(target, 0.0, "")
+    return BUILD_DIR / f"libpg_{src.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build() -> BuildResult:
+    """Compile each csrc/*.cu into build/libpg_<name>-<digest>.so (where not
+    built yet), one nvcc process per source, all running at once."""
+    sources = _sources()
+    targets = [_target(src) for src in sources]
+    todo = [(src, t) for src, t in zip(sources, targets) if not t.exists()]
+    if not todo:
+        return BuildResult(tuple(targets), 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
     start = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - start
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
-    os.replace(tmp, target)
-    return BuildResult(target, seconds, log)
+    jobs = []
+    for src, target in todo:
+        tmp = target.with_name(f"{target.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs.append((cmd, proc, tmp, target))
+    logs, failures = [], []
+    for cmd, proc, tmp, target in jobs:
+        out, _ = proc.communicate()
+        logs.append(out)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+        else:
+            os.replace(tmp, target)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return BuildResult(tuple(targets), time.perf_counter() - start, "".join(logs))
+
+
+class _Kernels:
+    """The entry points of every kernel library, as attributes."""
+
+    def __init__(self, libs):
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            found = [getattr(lib, name) for lib in libs if hasattr(lib, name)]
+            if len(found) != 1:
+                raise RuntimeError(
+                    f"CUDA entry point {name} found in {len(found)} kernel libraries"
+                )
+            fn = found[0]
+            fn.argtypes = argtypes
+            fn.restype = restype
+            setattr(self, name, fn)
 
 
 @functools.cache
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build().path))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    return lib
+def library() -> _Kernels:
+    """The loaded kernel libraries, built on first call."""
+    return _Kernels([ctypes.CDLL(str(path)) for path in build().paths])
 
 
 def current_stream(device) -> int:

@@ -141,8 +141,11 @@ def _schur_lm(
         return (res * res).sum() + (pr * pr).sum()
 
     def segment_sum(values, index, segments):
+        # index_put_ with accumulate sums each segment in a fixed order on
+        # CUDA (index_add_ uses atomics there), so a BA, and with it a
+        # whole ride, gives the same float32 result run after run.
         out = torch.zeros((segments,) + values.shape[1:], dtype=dtype, device=device)
-        return out.index_add_(0, index, values)
+        return out.index_put_((index,), values, accumulate=True)
 
     poses, points = problem.poses6, problem.points
     damping = torch.full((), init_damping, dtype=dtype, device=device)

@@ -4,9 +4,12 @@ Fixed-shape, like the reference: every pyramid level yields exactly its
 keypoint budget (invalid slots masked). Per level: antialiased linear
 resize of the level-0 image, FAST-9/16 response + 3x3 NMS (kernel K1,
 vo/fast_kernel.py), best-per-cell then global top-N selection, parabola
-sub-pixel refinement, a 17-tap Gaussian blur, one 39x39 patch per keypoint
-(kernel K2, vo/patch_kernel.py), intensity-centroid orientation and steered
-BRIEF from those patches.
+sub-pixel refinement, one Gaussian-blurred 39x39 patch per keypoint,
+intensity-centroid orientation and steered BRIEF from those patches. The
+blurred patches come from a 17-tap blur of the whole level and a gather
+(kernel K2, vo/patch_kernel.py; ``patch_impl="blur_then_gather"``, the
+default), or from one fused blur + gather (kernel K3, the same module;
+``patch_impl="fused"``, the reference's ``PGTPU_PATCH_IMPL=fused``).
 
 The constant tables (FAST_CIRCLE, BRIEF_PATTERN, the BRIEF steering-bin
 matrix, the orientation moment weights) are built by the reference's numpy
@@ -24,14 +27,20 @@ import torch
 import torch.nn.functional as F
 
 from pilotguru_tpu_torch.vo.fast_kernel import FAST_CIRCLE, fast_nms  # noqa: F401
-from pilotguru_tpu_torch.vo.patch_kernel import PATCH_GATHER_RADIUS, gather_patches
+from pilotguru_tpu_torch.vo.patch_kernel import (
+    BLUR_SIGMA,
+    PATCH_GATHER_RADIUS,
+    gather_blurred_patches,
+    gather_patches,
+    gaussian_kernel,
+)
 
 PATCH_RADIUS = 15  # intensity-centroid orientation patch (ORB standard)
 BRIEF_RADIUS = 13  # max |coordinate| of pattern points
 DESCRIPTOR_BITS = 256
 _PATCH_SIZE = 2 * PATCH_GATHER_RADIUS + 1
 BRIEF_ANGLE_BINS = 32  # steering quantization (ORB paper uses 2*pi/30)
-BLUR_SIGMA = 2.0
+PATCH_IMPLS = ("blur_then_gather", "fused")
 
 
 def make_brief_pattern(seed: int = 7) -> np.ndarray:
@@ -297,15 +306,6 @@ def resize_linear(image: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return _resize_rows(rows.T.contiguous(), out_w).T.contiguous()
 
 
-def gaussian_kernel(sigma: float):
-    """Normalized 1-D Gaussian taps (float64 build, float32 values) and the
-    radius (round(4 sigma)), as pilotguru_tpu/ml/augmentation.py."""
-    radius = max(int(round(4.0 * sigma)), 1)
-    x = np.arange(-radius, radius + 1, dtype=np.float64)
-    k = np.exp(-(x**2) / (2.0 * sigma**2))
-    return (k / k.sum()).astype(np.float32), radius
-
-
 def gaussian_blur(image: torch.Tensor, sigma: float = BLUR_SIGMA) -> torch.Tensor:
     """Separable reflect-padded Gaussian blur of a [H, W] image, rows then
     columns. Taps accumulate sequentially (multiply, then add), so CPU and
@@ -330,15 +330,21 @@ def extract_orb_features(
     threshold: float = 20.0 / 255.0,
     total_budget: int = 2000,
     cell: int = 16,
+    patch_impl: str = "blur_then_gather",
 ) -> Keypoints:
     """Full extractor over an image pyramid -> fixed-size Keypoints.
 
     image: [H, W] float32 grayscale in [0, 1] on any device; the outputs
-    live on the same device. Coordinates are level-0 pixels."""
+    live on the same device. Coordinates are level-0 pixels. ``patch_impl``
+    picks how the blurred patches are made (PATCH_IMPLS, module docstring)."""
     if image.dtype != torch.float32 or image.dim() != 2:
         raise ValueError(
             f"extract_orb_features: want [H, W] float32, got {image.dtype} "
             f"{tuple(image.shape)}"
+        )
+    if patch_impl not in PATCH_IMPLS:
+        raise ValueError(
+            f"extract_orb_features: patch_impl {patch_impl!r} is not one of {PATCH_IMPLS}"
         )
     image = image.contiguous()
     device = image.device
@@ -351,9 +357,12 @@ def extract_orb_features(
         raw, scores = fast_nms(level_img, threshold)
         yx, resp, valid = select_grid_topk(scores, budgets[level], cell)
         offsets = subpixel_offsets(raw, yx)
-        # One patch gather per keypoint (blurred image) feeds both the
-        # orientation moments and BRIEF, as in the reference.
-        patches = gather_patches(gaussian_blur(level_img), yx)
+        # One blurred patch per keypoint feeds both the orientation moments
+        # and BRIEF, as in the reference.
+        if patch_impl == "fused":
+            patches = gather_blurred_patches(level_img, yx)
+        else:
+            patches = gather_patches(gaussian_blur(level_img), yx)
         angle = orientations_from_patches(patches, tables)
         desc = brief_from_patches(patches, angle, tables)
         refined = yx.to(torch.float32) + offsets

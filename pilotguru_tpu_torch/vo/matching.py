@@ -31,27 +31,28 @@ class Matches(NamedTuple):
 
 
 def hamming_table(desc_a, desc_b, valid_a=None, valid_b=None):
-    """Pairwise Hamming distances [Na, Nb] int32 (invalid rows/cols -> 257)."""
+    """Pairwise Hamming distances [..., Na, Nb] int32 (invalid rows/cols ->
+    257); leading batch dimensions of either side broadcast."""
     a = desc_a.to(torch.float32) * 2 - 1
     b = desc_b.to(torch.float32) * 2 - 1
-    dot = a @ b.T
+    dot = a @ b.transpose(-1, -2)
     dist = ((DESCRIPTOR_BITS - dot) * 0.5).to(torch.int32)
     big = torch.full_like(dist, _NO_MATCH)
     if valid_a is not None:
-        dist = torch.where(valid_a[:, None], dist, big)
+        dist = torch.where(valid_a[..., :, None], dist, big)
     if valid_b is not None:
-        dist = torch.where(valid_b[None, :], dist, big)
+        dist = torch.where(valid_b[..., None, :], dist, big)
     return dist
 
 
 def _best_and_second(dist):
-    best_idx = torch.argmin(dist, dim=1)
-    best = torch.gather(dist, 1, best_idx[:, None])[:, 0]
-    cols = torch.arange(dist.shape[1], device=dist.device)
+    best_idx = torch.argmin(dist, dim=-1)
+    best = torch.gather(dist, -1, best_idx[..., None])[..., 0]
+    cols = torch.arange(dist.shape[-1], device=dist.device)
     masked = torch.where(
-        cols[None, :] == best_idx[:, None], torch.full_like(dist, _NO_MATCH), dist
+        cols == best_idx[..., None], torch.full_like(dist, _NO_MATCH), dist
     )
-    second = masked.min(dim=1).values
+    second = masked.min(dim=-1).values
     return best_idx, best, second
 
 
@@ -72,15 +73,17 @@ def match_descriptors(
     ratio: float = 0.9,
     mutual: bool = True,
 ) -> Matches:
-    """Best-match search with Lowe ratio + optional mutual-best check."""
+    """Best-match search with Lowe ratio + optional mutual-best check.
+    Leading batch dimensions broadcast (hamming_table)."""
     dist = hamming_table(desc_a, desc_b, valid_a, valid_b)
     best_idx, best, second = _best_and_second(dist)
     ok = (best <= max_distance) & (
         best.to(torch.float32) < ratio * second.to(torch.float32)
     )
     if mutual:
-        best_rev = torch.argmin(dist, dim=0)
-        ok = ok & (best_rev[best_idx] == torch.arange(dist.shape[0], device=dist.device))
+        best_rev = torch.argmin(dist, dim=-2)
+        rows = torch.arange(dist.shape[-2], device=dist.device)
+        ok = ok & (torch.gather(best_rev, -1, best_idx) == rows)
     if valid_a is not None:
         ok = ok & valid_a
     return _finish(best_idx, best, ok)

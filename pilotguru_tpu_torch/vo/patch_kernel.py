@@ -1,21 +1,57 @@
-"""K2: per-keypoint square patch gather.
+"""K2 (per-keypoint square patch gather) and K3 (the same gather fused with
+the Gaussian blur).
 
-Port of pilotguru_tpu/vo/patch_pallas.py::gather_patches_pallas (and of the
-plain ``extract_patches`` of pilotguru_tpu/vo/features.py). ``gather_patches``
-dispatches on the image's device: a CPU tensor runs ``gather_patches_plain``;
-a CUDA tensor launches the hand-written kernel in csrc/patch_gather.cu or
-raises.
+Ports of pilotguru_tpu/vo/patch_pallas.py::gather_patches_pallas (and of the
+plain ``extract_patches`` of pilotguru_tpu/vo/features.py) and of
+``gather_blurred_patches_pallas``. ``gather_patches`` and
+``gather_blurred_patches`` dispatch on the image's device: a CPU tensor runs
+the plain version; a CUDA tensor launches the hand-written kernel
+(csrc/patch_gather.cu, csrc/blur_patch_gather.cu) or raises.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from pilotguru_tpu_torch import cuda_lib
 
 PATCH_GATHER_RADIUS = 19  # covers orientation (r=15) + rotated BRIEF taps
+BLUR_SIGMA = 2.0
 
 COUNTER = cuda_lib.KernelCounter("gather_patches")
+BLUR_COUNTER = cuda_lib.KernelCounter("gather_blurred_patches")
+
+
+def gaussian_kernel(sigma: float):
+    """Normalized 1-D Gaussian taps (float64 build, float32 values) and the
+    radius (round(4 sigma)), as pilotguru_tpu/ml/augmentation.py."""
+    radius = max(int(round(4.0 * sigma)), 1)
+    x = np.arange(-radius, radius + 1, dtype=np.float64)
+    k = np.exp(-(x**2) / (2.0 * sigma**2))
+    return (k / k.sum()).astype(np.float32), radius
+
+
+@functools.lru_cache(maxsize=8)
+def _taps_tensor(sigma: float, device) -> torch.Tensor:
+    return torch.from_numpy(gaussian_kernel(sigma)[0]).to(device)
+
+
+def _check_image_and_yx(name: str, image: torch.Tensor, yx: torch.Tensor) -> None:
+    if image.dtype != torch.float32 or image.dim() != 2:
+        raise ValueError(
+            f"{name}: want a 2-D float32 image, got {image.dtype} {tuple(image.shape)}"
+        )
+    if yx.device != image.device or yx.dtype != torch.int32 or yx.dim() != 2 \
+            or yx.shape[1] != 2:
+        raise ValueError(
+            f"{name}: want yx as [K, 2] int32 on the image's device, got "
+            f"{yx.dtype} {tuple(yx.shape)} on {yx.device}"
+        )
+    if not (image.is_contiguous() and yx.is_contiguous()):
+        raise ValueError(f"{name}: image and yx must be contiguous")
 
 
 def gather_patches_plain(
@@ -45,19 +81,7 @@ def gather_patches(
         return gather_patches_plain(image, yx, radius)
     if image.device.type != "cuda":
         raise ValueError(f"gather_patches: unsupported device {image.device}")
-    if image.dtype != torch.float32 or image.dim() != 2:
-        raise ValueError(
-            "gather_patches: want a 2-D float32 image, got "
-            f"{image.dtype} {tuple(image.shape)}"
-        )
-    if yx.device != image.device or yx.dtype != torch.int32 or yx.dim() != 2 \
-            or yx.shape[1] != 2:
-        raise ValueError(
-            "gather_patches: want yx as [K, 2] int32 on the image's device, got "
-            f"{yx.dtype} {tuple(yx.shape)} on {yx.device}"
-        )
-    if not (image.is_contiguous() and yx.is_contiguous()):
-        raise ValueError("gather_patches: image and yx must be contiguous")
+    _check_image_and_yx("gather_patches", image, yx)
     if radius < 0:
         raise ValueError(f"gather_patches: radius must be >= 0, got {radius}")
     h, w = image.shape
@@ -73,4 +97,84 @@ def gather_patches(
     )
     COUNTER.launches += 1
     cuda_lib.check_launch("gather_patches", err)
+    return out
+
+
+def _reflect_edge_index(p: torch.Tensor, n: int, radius: int, blur_radius: int):
+    """Index into an axis of length ``n`` of position ``p`` on that axis
+    edge-padded by ``radius`` after a reflect padding by ``blur_radius``
+    (numpy's "reflect": the edge sample is not repeated)."""
+    q = p.clamp(radius, radius + n + 2 * blur_radius - 1) - radius - blur_radius
+    q = q.abs()
+    return torch.where(q > n - 1, 2 * (n - 1) - q, q)
+
+
+def gather_blurred_patches_plain(
+    image: torch.Tensor, yx: torch.Tensor, radius: int = PATCH_GATHER_RADIUS,
+    sigma: float = BLUR_SIGMA,
+):
+    """Plain PyTorch version of K3: [K, 2r+1, 2r+1] Gaussian-blurred patches.
+
+    Contract: yx are in-image keypoints (row, col); others are clamped into
+    the image first, as K2 clamps. With P = edge_pad(reflect_pad(image, br),
+    r), br = round(4 sigma), patch k is the separable blur (vertical pass,
+    then horizontal) of the raw window P[y : y+2r+1+2br, x : x+2r+1+2br],
+    each pass summing its taps one by one (multiply, then add), as the
+    Pallas body does. Within br + r pixels of the border this differs from
+    blur-then-gather by construction: the blur sees the edge-padded raw
+    image, not the reflect-padded one."""
+    if image.is_cuda:
+        BLUR_COUNTER.plain_cuda_calls += 1
+    taps, br = gaussian_kernel(sigma)
+    h, w = image.shape
+    size = 2 * radius + 1
+    win = size + 2 * br
+    offs = torch.arange(win, device=image.device)
+    ys = yx[:, 0].long().clamp(0, h - 1)
+    xs = yx[:, 1].long().clamp(0, w - 1)
+    rows = _reflect_edge_index(ys[:, None] + offs[None, :], h, radius, br)  # [K, win]
+    cols = _reflect_edge_index(xs[:, None] + offs[None, :], w, radius, br)
+    window = image[rows[:, :, None], cols[:, None, :]]  # [K, win, win]
+    vert = float(taps[0]) * window[:, 0:size, :]
+    for u in range(1, taps.shape[0]):
+        vert = vert + float(taps[u]) * window[:, u : u + size, :]
+    out = float(taps[0]) * vert[:, :, 0:size]
+    for v in range(1, taps.shape[0]):
+        out = out + float(taps[v]) * vert[:, :, v : v + size]
+    return out
+
+
+def gather_blurred_patches(
+    image: torch.Tensor, yx: torch.Tensor, radius: int = PATCH_GATHER_RADIUS,
+    sigma: float = BLUR_SIGMA,
+):
+    """Fused blur + patch gather: image [H, W] float32, yx [K, 2] int32 ->
+    [K, S, S] blurred patches (see gather_blurred_patches_plain)."""
+    if image.device.type == "cpu":
+        return gather_blurred_patches_plain(image, yx, radius, sigma)
+    if image.device.type != "cuda":
+        raise ValueError(f"gather_blurred_patches: unsupported device {image.device}")
+    _check_image_and_yx("gather_blurred_patches", image, yx)
+    _, br = gaussian_kernel(sigma)
+    h, w = image.shape
+    size = 2 * radius + 1
+    win = size + 2 * br
+    if radius < 0 or br >= min(h, w) or 2 * br + 1 > 64 \
+            or 4 * (win * win + size * win) > 48 * 1024:
+        raise ValueError(
+            f"gather_blurred_patches: unsupported radius {radius} / sigma {sigma} "
+            f"for a {h}x{w} image"
+        )
+    k = yx.shape[0]
+    out = torch.empty((k, size, size), dtype=image.dtype, device=image.device)
+    if k == 0:
+        return out
+    taps = _taps_tensor(float(sigma), image.device)
+    lib = cuda_lib.library()
+    err = lib.pg_blur_patch_gather(
+        image.data_ptr(), yx.data_ptr(), taps.data_ptr(), out.data_ptr(),
+        h, w, k, radius, br, cuda_lib.current_stream(image.device),
+    )
+    BLUR_COUNTER.launches += 1
+    cuda_lib.check_launch("gather_blurred_patches", err)
     return out

@@ -21,7 +21,7 @@ from typing import Iterable, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from pilotguru_tpu.formats.trajectory import Trajectory, write_trajectory
+from pilotguru_tpu_torch.formats.trajectory import Trajectory, write_trajectory
 from pilotguru_tpu_torch.timeseries.smoothing import smooth_quaternion_sequence
 from pilotguru_tpu_torch.vo.camera import CameraSettings
 from pilotguru_tpu_torch.vo.flatten import flatten_trajectory
@@ -47,12 +47,12 @@ def video_frames(
     scale: float = 1.0,
 ) -> Iterator[VideoFrame]:
     """Decode a ride video (or a TUM-style image list) to grayscale uint8
-    frames with timestamps: the native libav reader of pilotguru_tpu.video
-    when it is built, else cv2 (imported here, not at module import)."""
+    frames with timestamps: the native libav reader (video/native.py) when
+    it is built, else cv2 (imported here, not at module import)."""
     import cv2
 
-    from pilotguru_tpu.video import native as native_video
-    from pilotguru_tpu.video.io import is_image_list, read_image_list_rgb
+    from pilotguru_tpu_torch.video import native as native_video
+    from pilotguru_tpu_torch.video.io import is_image_list, read_image_list_rgb
 
     def gray_of(rgb):
         gray = cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY)
@@ -107,6 +107,7 @@ def tracker_from_settings(
     image_scale: float = 1.0,
     device="cuda",
     dtype: Optional[torch.dtype] = None,
+    patch_impl: str = "blur_then_gather",
 ) -> MonocularTracker:
     camera = CameraModel(
         fx=settings.fx * image_scale,
@@ -123,6 +124,7 @@ def tracker_from_settings(
         total_budget=settings.orb_features,
         num_levels=settings.orb_levels,
         fast_threshold=settings.orb_ini_th_fast / 255.0,
+        patch_impl=patch_impl,
     )
     return MonocularTracker(camera, config, device=device, dtype=dtype)
 
@@ -170,6 +172,7 @@ def track_video_segments(
     device="cuda",
     dtype: Optional[torch.dtype] = None,
     stage_seconds: Optional[dict] = None,
+    patch_impl: str = "blur_then_gather",
 ) -> Tuple[int, int]:
     """Segment loop (optical_trajectories.cc:91-111): fresh tracker per
     segment, restart after LOST, one JSON per valid segment. Returns
@@ -178,7 +181,8 @@ def track_video_segments(
     ``stage_seconds``: when given, host seconds spent extracting features
     (``"extract"``) and tracking (``"track"``) accumulate into it; both
     stages end in a device-to-host copy, so the host clock covers the
-    device work."""
+    device work. ``patch_impl``: the extractor's blurred-patch path
+    (TrackerConfig.patch_impl)."""
     if per_segment_videos or visualize or live_view_port is not None:
         raise NotImplementedError(
             "--output_per_segment_videos, --visualize and --visualize_live_port "
@@ -194,7 +198,7 @@ def track_video_segments(
     consumed = 0
     exhausted = False
     while not exhausted:
-        tracker = tracker_from_settings(settings, image_scale, device, dtype)
+        tracker = tracker_from_settings(settings, image_scale, device, dtype, patch_impl)
         fed = 0
         for frame in frames:
             t0 = time.perf_counter()

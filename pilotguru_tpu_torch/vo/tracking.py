@@ -6,15 +6,17 @@ refinement (``fused_track_step``), with reference-keyframe re-tracking and
 relocalization as fallbacks; at keyframes: map-point culling, triangulation
 against the recent keyframes, duplicate fusion, local bundle adjustment
 (deferred to the next keyframe, as the reference's LocalMapping thread) and
-keyframe culling. The numerics run on the tracker's device; the map
-bookkeeping stays on the host in numpy, exactly as in the reference.
+keyframe culling, then loop detection and closure (vo/loopclosing.py,
+on by default as in the reference). The numerics run on the tracker's
+device; the map bookkeeping stays on the host in numpy, exactly as in the
+reference.
 
 Per-frame poses are stored relative to their reference keyframe and the
 absolute trajectory is rebuilt from the current keyframe poses
-(``final_trajectory``), so BA corrections reach every frame.
+(``final_trajectory``), so BA and loop corrections reach every frame.
 
-Not ported yet (see ROADMAP.md): chunked tracking (``track_chunk_frames``)
-and loop closing (``enable_loop_closing``); the config refuses both.
+Not ported yet (see ROADMAP.md): chunked tracking (``track_chunk_frames``);
+the config refuses it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 
 from pilotguru_tpu_torch.vo import matching
 from pilotguru_tpu_torch.vo.ba import BAProblem, bundle_adjust
-from pilotguru_tpu_torch.vo.features import extract_orb_features
+from pilotguru_tpu_torch.vo.features import PATCH_IMPLS, extract_orb_features
 from pilotguru_tpu_torch.vo.pose import (
     optimize_pose,
     project,
@@ -394,6 +396,7 @@ def extract_frame_features(gray, camera: CameraModel, config: "TrackerConfig",
         scale=config.scale,
         total_budget=config.total_budget,
         threshold=config.fast_threshold,
+        patch_impl=config.patch_impl,
     )
     kp_norm = normalize_keypoints_device(kps.xy, camera)
     packed = torch.cat(
@@ -419,6 +422,9 @@ class TrackerConfig:
     num_levels: int = 8
     scale: float = 1.2  # pyramid scale factor (ORBextractor_scaleFactor)
     fast_threshold: float = 20.0 / 255.0
+    # How the extractor makes its blurred patches (features.PATCH_IMPLS):
+    # "fused" is the reference's PGTPU_PATCH_IMPL=fused (kernel K3).
+    patch_impl: str = "blur_then_gather"
     max_map_points: int = 4096
     # Octave-aware matching: search radii scale with the map point's
     # creation level, candidates sit within this many octaves, residuals are
@@ -467,14 +473,15 @@ class TrackerConfig:
     fuse_search_radius: Optional[float] = None  # normalized override
     keyframe_cull_redundancy: float = 0.9  # KeyFrameCulling 90% rule
     keyframe_cull_min_obs: int = 3  # "seen in at least other 3 keyframes"
-    # --- loop closing: not ported; False is the only accepted value
-    # (ROADMAP.md, Queue 1 "loop closing"). The thresholds below are kept
-    # so configurations interchange with the reference.
-    enable_loop_closing: bool = False
-    loop_exclude_recent: int = 10
-    loop_min_match_count: int = 50
-    loop_min_inliers: int = 20
-    loop_cooldown_keyframes: int = 10
+    # --- loop closing ---
+    enable_loop_closing: bool = True
+    loop_exclude_recent: int = 10  # don't match against this many recent KFs
+    loop_min_match_count: int = 50  # descriptor votes to become a candidate
+    loop_min_inliers: int = 20  # Sim3-RANSAC inliers to accept the loop
+    loop_cooldown_keyframes: int = 10  # min KFs between accepted closures
+    # Post-closure BA: "global" re-optimizes every keyframe and point
+    # (RunGlobalBundleAdjustment), "seam" the candidate's and the current
+    # neighbourhoods, "none" leaves the pose graph's correction alone.
     loop_ba: str = "global"
 
     def __post_init__(self):
@@ -483,11 +490,8 @@ class TrackerConfig:
                 "track_chunk_frames > 0 (chunked tracking) is not ported to "
                 "pilotguru_tpu_torch yet; see ROADMAP.md Queue 1, chunked tracking"
             )
-        if self.enable_loop_closing:
-            raise NotImplementedError(
-                "enable_loop_closing=True is not ported to pilotguru_tpu_torch "
-                "yet; see ROADMAP.md Queue 1, loop closing"
-            )
+        if self.patch_impl not in PATCH_IMPLS:
+            raise ValueError(f"patch_impl {self.patch_impl!r} is not one of {PATCH_IMPLS}")
 
 
 @dataclass
@@ -606,12 +610,15 @@ class MonocularTracker:
         self._generator = torch.Generator()
         self._generator.manual_seed(0)
         self._next_kf_id = 0
+        self._last_loop_kf_id = -(10**9)  # kf_id of the last accepted loop
+        self._last_loop_cand_kf_id = -1  # its candidate's kf_id
         # Deferred local BA: (result, window keyframes, arena pids).
         self._pending_ba = None
         # Local map: points observed by the recent keyframe window; per-frame
         # tracking matches only these (TrackLocalMap semantics).
         self._local_points = np.zeros((m,), bool)
-        # Device copies of keyframe descriptors, keyed by kf_id.
+        # Device copies of keyframe descriptors, keyed by kf_id: uploaded
+        # once per keyframe, so the loop-vote sweep stacks them on the device.
         self._kf_desc_dev: Dict[int, tuple] = {}
         # Device map mirrors, rebuilt after map mutations (keyframe cadence).
         self._dev_map = None
@@ -737,6 +744,9 @@ class MonocularTracker:
             self.stats["points_skipped_capacity"] += int(count - free.size)
         return free[:count]
 
+    def _kf_index_by_id(self) -> Dict[int, int]:
+        return {kf.kf_id: i for i, kf in enumerate(self.keyframes)}
+
     def _refresh_local_points(self):
         """Local map = points observed by the recent keyframe window; the
         single choke point that invalidates the device mirrors."""
@@ -791,10 +801,6 @@ class MonocularTracker:
                           rel6=fp.rel6)
             )
         return out
-
-    def finalize(self):
-        """End of segment: fold in the last deferred local BA."""
-        self._apply_pending_ba()
 
     # ------------------------------------------------------- initialization
     def _try_initialize(self, frame: _FrameFeatures, frame_id, time_usec):
@@ -1086,16 +1092,24 @@ class MonocularTracker:
         # Re-anchor the just-appended frame to the new keyframe.
         self.trajectory[-1].ref_kf_id = kf.kf_id
         self.trajectory[-1].rel6 = np.zeros(6)
-        # Both sweeps are dispatched against the map as it stands now
-        # (before culling), as in the reference's keyframe fan.
+        # The keyframe fan: triangulation, the fuse sweep and the loop-vote
+        # sweep are dispatched against the map as it stands now (before
+        # culling), as in the reference; the votes are read after local BA.
         create_dev = self._dispatch_create_points_all(kf)
         fuse_dev = self._dispatch_fuse(kf)
+        vote_handle = None
+        if self.config.enable_loop_closing and self._loop_preconditions(kf):
+            from pilotguru_tpu_torch.vo import loopclosing
+
+            vote_handle = loopclosing.start_vote_sweep(self, kf)
         self._map_point_culling(kf)
         self._create_new_points(kf, create_dev)
         self._fuse_duplicates(kf, fuse_dev)
         if self.config.ba_every_keyframe and len(self.keyframes) >= 3:
             self._local_bundle_adjust()
         self._keyframe_culling()
+        if self.config.enable_loop_closing:
+            self._try_close_loop(kf, vote_handle)
         self._refresh_local_points()
         self._frames_since_keyframe = 0
 
@@ -1211,19 +1225,30 @@ class MonocularTracker:
         graduated = recent[~bad][age[~bad] >= 3]
         self.point_recent[graduated] = False
 
-    def _dispatch_fuse(self, kf: Keyframe):
-        """Dispatch the fuse projection sweep of the local window's points
-        not yet observed in ``kf`` against the compact mirror. Returns
-        (sel, packed) or None when there are no candidates."""
+    def _dispatch_fuse(self, kf: Keyframe, whole_map: bool = False):
+        """Dispatch the fuse projection sweep of the points not yet observed
+        in ``kf``: the local window's, against the compact mirror, or
+        (``whole_map``, the post-loop SearchAndFuse) every valid point,
+        against the whole arena. Returns (sel, packed) with ``sel`` the arena
+        slots behind the result's rows, or None without candidates."""
         observed = np.zeros(self.config.max_map_points, bool)
         observed[kf.map_point[kf.map_point >= 0]] = True
-        cand = self.point_valid & ~observed & self._local_points
+        cand = self.point_valid & ~observed
+        if not whole_map:
+            cand &= self._local_points
         if not cand.any():
             return None
-        points_dev, desc_dev, _, level_dev = self._device_map()
-        sel, n = self._dev_map_sel, self._dev_map_count
-        cand_b = np.zeros(int(points_dev.shape[0]), bool)
-        cand_b[:n] = cand[sel[:n]]
+        if whole_map:
+            sel = np.arange(self.config.max_map_points)
+            points_dev, desc_dev, level_dev = (
+                self._t(self.points), self._t(self.point_desc), self._t(self.point_level)
+            )
+            cand_b = cand
+        else:
+            points_dev, desc_dev, _, level_dev = self._device_map()
+            sel, n = self._dev_map_sel.copy(), self._dev_map_count
+            cand_b = np.zeros(int(points_dev.shape[0]), bool)
+            cand_b[:n] = cand[sel[:n]]
         kf_desc_dev, _ = self.kf_descriptors_device(kf)
         packed = fused_project_match(
             points_dev, desc_dev, self._t(cand_b), level_dev,
@@ -1234,14 +1259,17 @@ class MonocularTracker:
             scale=self.config.scale,
             level_window=self.config.level_window,
         )
-        return sel.copy(), packed
+        return sel, packed
 
     def _fuse_duplicates(self, kf: Keyframe, dispatched):
         """LocalMapping::SearchInNeighbors (LocalMapping.cc:454-525): a match
         onto a keypoint that already references a different point merges
         the two (the better-observed point wins); a match onto a free
         keypoint adds an observation. Candidates culled, or slots recycled
-        for points created at this keyframe, since dispatch are dropped."""
+        for points created at this keyframe, since dispatch are dropped.
+        ``dispatched`` is a _dispatch_fuse result: the local window's sweep,
+        or after a loop closure the whole map's (SearchAndFuse), where
+        stitching the revisited points is the point."""
         if dispatched is None:
             return
         sel, packed_dev = dispatched
@@ -1319,10 +1347,26 @@ class MonocularTracker:
             self.stats["keyframes_culled"] += 1
             return  # at most one cull per keyframe insertion
 
-    # ------------------------------------------------------------- local BA
+    # ------------------------------------------------------ bundle adjustment
+    def _global_bundle_adjust(self):
+        """Whole-map BA after a loop closure (LoopClosing::
+        RunGlobalBundleAdjustment): with the duplicated landmarks fused
+        across the seam, every keyframe and point is optimized jointly
+        through the Schur LM of vo/ba.py (poses padded to a bucket of 8)."""
+        self._windowed_bundle_adjust(self.keyframes)
+
     def _local_bundle_adjust(self):
-        window = self.keyframes[-self.config.local_window :]
-        pad_poses_to = self.config.local_window
+        self._windowed_bundle_adjust(
+            self.keyframes[-self.config.local_window :],
+            pad_poses_to=self.config.local_window,
+            deferred=self.config.ba_async,
+        )
+
+    def _windowed_bundle_adjust(self, window, pad_poses_to=None, deferred=False):
+        """BA of ``window``'s keyframes and the points they observe. Deferred,
+        the result parks in _pending_ba (the LocalMapping-thread lag);
+        otherwise it applies at once and the live pose follows the newest
+        keyframe when it is in the window."""
         inv_scale = 1.0 / self.config.scale
         ki_parts, pid_parts, uv_parts, invs_parts = [], [], [], []
         for ki, kf in enumerate(window):
@@ -1354,10 +1398,11 @@ class MonocularTracker:
         def bucket(n, step):
             return -(-n // step) * step
 
+        num_k = pad_poses_to or bucket(len(window), 8)
         poses = np.stack([kf.pose6 for kf in window])
-        if poses.shape[0] < pad_poses_to:
+        if poses.shape[0] < num_k:
             poses = np.concatenate(
-                [poses, np.repeat(poses[-1:], pad_poses_to - poses.shape[0], axis=0)]
+                [poses, np.repeat(poses[-1:], num_k - poses.shape[0], axis=0)]
             )
         num_m = bucket(len(pids), 256)
         pts = np.zeros((num_m, 3))
@@ -1385,12 +1430,18 @@ class MonocularTracker:
         result = bundle_adjust(
             problem, huber_delta=self._huber, inlier_threshold=self._inlier_thresh,
         )
-        self._pending_ba = (result, list(window), pids)
-        if not self.config.ba_async:
-            # Synchronous apply: the live pose follows the refined newest
-            # keyframe (the window always ends at it).
-            self._apply_pending_ba()
-            self._pose = window[-1].pose6.copy()
+        if deferred:
+            self._pending_ba = (result, list(window), pids)
+            return
+        new_poses = result.poses6.cpu().numpy().astype(np.float64)
+        for ki, kf in enumerate(window):
+            kf.pose6 = new_poses[ki]
+        self.points[pids] = result.points.cpu().numpy().astype(np.float64)[: len(pids)]
+        self._invalidate_device_map()
+        for ki, kf in enumerate(window):
+            if kf is self.keyframes[-1]:
+                self._pose = new_poses[ki].copy()
+                break
 
     def _apply_pending_ba(self):
         """Fold a deferred local-BA result into the map: keyframe poses by
@@ -1410,3 +1461,72 @@ class MonocularTracker:
         new_points = result.points.cpu().numpy().astype(np.float64)[: len(pids)]
         self.points[pids[live]] = new_points[live]
         self._invalidate_device_map()
+
+    # ---------------------------------------------------------- loop closing
+    def _loop_preconditions(self, kf: Keyframe) -> bool:
+        """Host-side gates before any loop-closing device work: enough
+        keyframes, and the cooldown (in monotone kf ids) since the last
+        accepted loop."""
+        if len(self.keyframes) < (
+            self.config.loop_exclude_recent + self.config.loop_cooldown_keyframes
+        ):
+            return False
+        return kf.kf_id - self._last_loop_kf_id >= self.config.loop_cooldown_keyframes
+
+    def _try_close_loop(self, kf: Keyframe, vote_handle=None):
+        """Detect and close a loop at keyframe ``kf`` (vo/loopclosing.py);
+        ``vote_handle``: the vote sweep dispatched in the keyframe fan."""
+        from pilotguru_tpu_torch.vo import loopclosing
+
+        if not self._loop_preconditions(kf):
+            return
+        cand_idx = loopclosing.detect_and_close(self, kf, vote_handle)
+        if cand_idx is not None:
+            # A local BA deferred at this keyframe was computed from
+            # pre-closure geometry; the closure's own BA supersedes it.
+            self._pending_ba = None
+            self._last_loop_kf_id = kf.kf_id
+            self._last_loop_cand_kf_id = self.keyframes[cand_idx].kf_id
+            self.stats["loop_closures"] += 1
+            self._after_loop(kf, cand_idx)
+
+    def _after_loop(self, kf: Keyframe, cand_idx: int):
+        """Stitch the revisited region's duplicated points (whole-map fuse,
+        LoopClosing's SearchAndFuse), then BA against the fused seam."""
+        self._fuse_duplicates(kf, self._dispatch_fuse(kf, whole_map=True))
+        self._post_loop_ba(cand_idx)
+        self._refresh_local_points()
+
+    def _post_loop_ba(self, cand_idx: int):
+        if self.config.loop_ba == "none":
+            return
+        if self.config.loop_ba == "global" or len(self.keyframes) <= 12:
+            self._global_bundle_adjust()
+            return
+        # Seam window: the candidate's neighbourhood and the current tail,
+        # each keyframe once.
+        lo = max(cand_idx - 2, 0)
+        hi = min(cand_idx + 3, len(self.keyframes))
+        window = {id(k): k for k in self.keyframes[lo:hi] + self.keyframes[-6:]}
+        self._windowed_bundle_adjust(list(window.values()))
+
+    def finalize(self):
+        """End of segment: fold in the last deferred local BA, then one
+        cooldown-exempt loop detection and closure on the final keyframe
+        (the revisit overlap is largest there). When no loop closes there
+        but one closed mid-ride, the keyframes added after it get one more
+        whole-map fuse and BA around that loop's candidate."""
+        from pilotguru_tpu_torch.vo import loopclosing
+
+        self._apply_pending_ba()
+        if not self.config.enable_loop_closing or len(self.keyframes) < 4:
+            return
+        kf = self.keyframes[-1]
+        cand_idx = loopclosing.detect_and_close(self, kf)
+        if cand_idx is not None:
+            self.stats["loop_closures"] += 1
+            self._after_loop(kf, cand_idx)
+        elif self.stats["loop_closures"] > 0:
+            polish_idx = self._kf_index_by_id().get(self._last_loop_cand_kf_id)
+            if polish_idx is not None:
+                self._after_loop(kf, polish_idx)

@@ -1,10 +1,11 @@
 """Where the VO main path spends its time on the card.
 
-    python3 profile_vo.py [--frames 150] [--trace DIR]
+    python3 profile_vo.py [--ride parallax|loop] [--frames N] [--trace DIR]
 
-Runs the synthetic 720p ride (chip_smoke.render_ride; 2000 features, 8
-levels) through
-the port's segment loop on CUDA and prints, per frame:
+Runs one of chip_smoke's synthetic 720p rides (2000 features, 8 levels):
+the parallax ride (render_ride, blur-then-gather) or the loop ride
+(render_loop_ride, the fused blur + gather, one loop closed near its end)
+through the port's segment loop on CUDA and prints, per frame:
 - host seconds per stage and per tracker step (each timed section ends with
   ``torch.cuda.synchronize()``, so a step's device work is inside it);
 - from ``torch.profiler`` over a steady window of frames: the device's busy
@@ -27,9 +28,8 @@ import time
 
 import torch
 
-from chip_smoke import render_ride
+from chip_smoke import render_loop_ride, render_ride, ride_settings
 from pilotguru_tpu_torch.vo import tracking
-from pilotguru_tpu_torch.vo.camera import CameraSettings
 from pilotguru_tpu_torch.vo.pipeline import VideoFrame, track_video_segments
 
 # Tracker steps timed on their own (host seconds, synchronised).
@@ -37,7 +37,8 @@ STEPS = (
     "_track_attempt", "_track_reference_keyframe", "_try_initialize",
     "_map_point_culling", "_dispatch_create_points_all", "_create_new_points",
     "_dispatch_fuse", "_fuse_duplicates", "_local_bundle_adjust",
-    "_apply_pending_ba", "_keyframe_culling", "_refresh_local_points",
+    "_apply_pending_ba", "_keyframe_culling", "_try_close_loop",
+    "_global_bundle_adjust", "_refresh_local_points",
 )
 
 
@@ -57,7 +58,9 @@ def _timed(fn, name, totals):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--frames", type=int, default=150)
+    parser.add_argument("--ride", choices=["parallax", "loop"], default="parallax")
+    parser.add_argument("--frames", type=int, default=None,
+                        help="frames of the ride (default: all, 150 or 318)")
     parser.add_argument("--window", type=int, nargs=2, default=(60, 90),
                         help="frames [first, last) profiled by torch.profiler")
     parser.add_argument("--trace", default="", help="directory for the Chrome trace")
@@ -65,9 +68,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_vo measures the card: no CUDA device")
 
-    ride = list(render_ride(args.frames))
-    settings = CameraSettings(fx=700.0, fy=700.0, cx=640.0, cy=360.0,
-                              orb_features=2000, orb_levels=8)
+    if args.ride == "loop":
+        ride = list(render_loop_ride() if args.frames is None else render_loop_ride(args.frames))
+        patch_impl = "fused"
+    else:
+        ride = list(render_ride() if args.frames is None else render_ride(args.frames))
+        patch_impl = "blur_then_gather"
+    settings = ride_settings()
     totals = collections.defaultdict(lambda: [0.0, 0])
     originals = {name: getattr(tracking.MonocularTracker, name) for name in STEPS}
     for name, fn in originals.items():
@@ -97,6 +104,7 @@ def main(argv=None) -> int:
         start = time.perf_counter()
         segments, consumed = track_video_segments(
             frames(), settings, out_dir, device="cuda", stage_seconds=stages,
+            patch_impl=patch_impl,
         )
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start

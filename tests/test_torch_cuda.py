@@ -13,7 +13,12 @@ import torch
 
 from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_plain
 from pilotguru_tpu_torch.vo.features import extract_orb_features
-from pilotguru_tpu_torch.vo.patch_kernel import gather_patches, gather_patches_plain
+from pilotguru_tpu_torch.vo.patch_kernel import (
+    gather_blurred_patches,
+    gather_blurred_patches_plain,
+    gather_patches,
+    gather_patches_plain,
+)
 
 torch.set_num_threads(1)
 
@@ -47,7 +52,29 @@ def test_patch_kernel_matches_plain(cuda):
 
 
 @pytest.mark.cuda
-def test_extractor_cuda_matches_cpu(cuda):
+@pytest.mark.parametrize("shape", [(720, 1280), (201, 357), (32, 40)])
+def test_blur_patch_kernel_matches_plain(cuda, shape):
+    """K3 equals its plain version bit for bit (same taps, same order, no
+    FMA) on random keypoints, keypoints within 27 px of each border and the
+    four corners."""
+    rng = np.random.default_rng(8)
+    h, w = shape
+    img = torch.from_numpy(rng.uniform(0, 1, size=shape).astype(np.float32)).to(cuda)
+    yx = np.concatenate([
+        np.stack([rng.integers(0, h, 434), rng.integers(0, w, 434)], axis=1),
+        np.stack([rng.integers(0, min(27, h), 8), rng.integers(0, w, 8)], axis=1),
+        np.stack([rng.integers(max(h - 27, 0), h, 8), rng.integers(0, w, 8)], axis=1),
+        np.stack([rng.integers(0, h, 8), rng.integers(0, min(27, w), 8)], axis=1),
+        np.stack([rng.integers(0, h, 8), rng.integers(max(w - 27, 0), w, 8)], axis=1),
+        np.array([[0, 0], [0, w - 1], [h - 1, 0], [h - 1, w - 1]]),
+    ])
+    yx = torch.from_numpy(yx.astype(np.int32)).to(cuda)
+    assert torch.equal(gather_blurred_patches(img, yx), gather_blurred_patches_plain(img, yx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("patch_impl", ["blur_then_gather", "fused"])
+def test_extractor_cuda_matches_cpu(cuda, patch_impl):
     """Every extractor stage is device-independent except the orientation
     moment sums (reduction order), which can flip a descriptor only for an
     angle at a steering-bin edge."""
@@ -56,9 +83,10 @@ def test_extractor_cuda_matches_cpu(cuda):
     for _ in range(300):
         y, x = rng.integers(0, 350), rng.integers(0, 630)
         img[y : y + rng.integers(3, 12), x : x + rng.integers(3, 12)] = rng.uniform()
-    cpu = extract_orb_features(torch.from_numpy(img), num_levels=4, total_budget=800)
+    cpu = extract_orb_features(torch.from_numpy(img), num_levels=4, total_budget=800,
+                               patch_impl=patch_impl)
     gpu = extract_orb_features(torch.from_numpy(img).to(cuda), num_levels=4,
-                               total_budget=800)
+                               total_budget=800, patch_impl=patch_impl)
     assert torch.equal(cpu.valid, gpu.valid.cpu())
     assert torch.equal(cpu.level, gpu.level.cpu())
     assert torch.equal(cpu.xy, gpu.xy.cpu())

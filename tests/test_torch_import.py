@@ -1,11 +1,17 @@
-"""The PyTorch port imports torch and never jax; cv2 only inside its video
-decode and camera-YAML functions."""
+"""The PyTorch port imports torch and never jax, and no module of the JAX
+package pilotguru_tpu (not even one free of JAX); cv2 only inside its video
+decode and camera-YAML functions. Its trajectory files are byte-identical to
+the JAX package's."""
 
 import os
 import subprocess
 import sys
 
+import numpy as np
 import torch
+
+from pilotguru_tpu.formats import trajectory as jax_trajectory
+from pilotguru_tpu_torch.formats import trajectory
 
 torch.set_num_threads(1)
 
@@ -26,12 +32,13 @@ def _port_modules():
 
 def test_port_imports_neither_jax_nor_cv2():
     mods = _port_modules()
-    assert "pilotguru_tpu_torch.vo.tracking" in mods and len(mods) >= 20
+    assert "pilotguru_tpu_torch.vo.tracking" in mods and len(mods) >= 30
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "print(sorted(k for k in ('jax', 'jaxlib', 'cv2') if k in sys.modules))\n"
+        "print(sorted(k for k in sys.modules if k in ('jax', 'jaxlib', 'cv2')\n"
+        "             or k.split('.')[0] == 'pilotguru_tpu'))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
@@ -43,9 +50,11 @@ def test_port_imports_neither_jax_nor_cv2():
 
 
 def test_chip_smoke_imports_no_jax():
+    """chip_smoke.py and the measurement scripts beside it."""
     code = (
-        "import sys; import chip_smoke, profile_vo\n"
-        "print('jax' in sys.modules, 'cv2' in sys.modules)\n"
+        "import sys; import chip_smoke, profile_vo, ride_seeds\n"
+        "print('jax' in sys.modules, 'cv2' in sys.modules,\n"
+        "      [k for k in sys.modules if k.split('.')[0] == 'pilotguru_tpu'])\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
     out = subprocess.run(
@@ -53,7 +62,7 @@ def test_chip_smoke_imports_no_jax():
         cwd=REPO, timeout=300,
     )
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "False False"
+    assert out.stdout.strip() == "False False []"
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):
@@ -67,3 +76,42 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         return  # the card is there: the smoke runs for real (chip_smoke.py)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def _trajectory(cls):
+    rng = np.random.default_rng(0)
+    n = 7
+    rotations = rng.normal(size=(n, 4))
+    rotations /= np.linalg.norm(rotations, axis=1, keepdims=True)
+    return cls(
+        time_usec=np.arange(n, dtype=np.int64) * 33_367 + 5,
+        frame_id=np.arange(n, dtype=np.int64) + 3,
+        is_lost=np.zeros(n, bool),
+        translations=rng.normal(size=(n, 3)) * 1e3,
+        rotations=rotations,
+        plane=rng.normal(size=(2, 3)),
+        planar_directions=rng.normal(size=(n, 2)),
+        turn_angles=rng.normal(size=n) * 1e-2,
+    )
+
+
+def test_trajectory_json_is_byte_identical(tmp_path):
+    port_file, jax_file = tmp_path / "port.json", tmp_path / "jax.json"
+    trajectory.write_trajectory(_trajectory(trajectory.Trajectory), str(port_file), 2)
+    jax_trajectory.write_trajectory(_trajectory(jax_trajectory.Trajectory), str(jax_file), 2)
+    assert port_file.read_bytes() == jax_file.read_bytes()
+    # Each package reads the other's file back to the same values.
+    for read in (trajectory.read_trajectory, jax_trajectory.read_trajectory):
+        for path in (port_file, jax_file):
+            got = read(str(path))
+            want = _trajectory(trajectory.Trajectory)
+            np.testing.assert_array_equal(got.frame_id, want.frame_id - 2)
+            np.testing.assert_array_equal(got.time_usec, want.time_usec)
+            np.testing.assert_array_equal(got.translations, want.translations)
+            np.testing.assert_array_equal(got.rotations, want.rotations)
+            np.testing.assert_array_equal(got.plane, want.plane)
+            np.testing.assert_array_equal(got.planar_directions, want.planar_directions)
+            # The format stores angular velocities (turn / (dt + 1e-10), so a
+            # round trip is off by 3e-9 relative) and writes 0 for the first.
+            assert got.turn_angles[0] == 0.0
+            np.testing.assert_allclose(got.turn_angles[1:], want.turn_angles[1:], rtol=1e-8)

@@ -1,18 +1,25 @@
 """The port's tracker against the JAX package's, end to end on the golden
 video, with the reference's RANSAC draws replayed into the port.
 
-The JAX tracker draws its two-view and relocalization hypotheses from
-``jax.random`` keys (PRNGKey(0), split once per call). Torch cannot
+The JAX tracker draws its two-view, relocalization and Sim(3) hypotheses
+from ``jax.random`` keys (PRNGKey(0), split once per call). Torch cannot
 reproduce those draws, so this test rebuilds each call's hypothesis
 indices from the same key sequence and hands them to the port
-(``samples=``). Both run the slice's configuration (per-frame tracking,
-loop closing off) through their ``optical_trajectories`` pipelines on the
-CPU in float64. What remains different: the reference's CPU extractor sums
-the FAST taps in another order, and its two-view runs in float32.
+(``samples=``). Both run the reference CLI's tracker configuration but for
+chunking (per-frame tracking, loop closing on, global BA after a closure)
+through their ``optical_trajectories`` pipelines on the CPU in float64.
+What remains different: the reference's CPU extractor sums the FAST taps
+in another order, and its two-view runs in float32.
 
 Measured: per-frame rotation max 0.033 degrees (mean 0.002), camera-centre
 RMSE after Sim(3) alignment 0.014% of the path length, plane normal 0.012
-degrees.
+degrees; no loop closes on either side.
+
+The golden trajectory (tests/golden/expected/vo) came from the JAX CLI's
+chunked path, whose draws differ again: against it the JAX per-frame run
+reads 1.402 degrees worst rotation and the port's replayed run 1.403.
+test_rotation_against_golden_within_the_draws holds the port to the JAX
+per-frame run's distance plus the replay bar (0.1 degrees).
 """
 
 import dataclasses
@@ -25,16 +32,18 @@ import pytest
 import torch
 
 from pilotguru_tpu.formats.trajectory import read_trajectory
+from pilotguru_tpu.vo import features as jfeatures
 from pilotguru_tpu.vo import pipeline as jpipeline
 from pilotguru_tpu.vo import tracking as jtracking
 from pilotguru_tpu.vo.camera import read_camera_settings as jax_read_camera_settings
 from pilotguru_tpu_torch.cli import optical_trajectories
-from pilotguru_tpu_torch.vo import tracking
+from pilotguru_tpu_torch.vo import pipeline, sim3, tracking
 
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INPUTS = os.path.join(REPO, "tests", "golden", "inputs")
+GOLDEN = os.path.join(REPO, "tests", "golden", "expected", "vo", "trajectory-0000.json")
 
 
 def _replay(key, weights, size, count):
@@ -46,31 +55,70 @@ def _replay(key, weights, size, count):
     )(keys)))
 
 
-@pytest.fixture(scope="module")
-def jax_slice_trajectory(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("jax_vo"))
+def _fresh_jax_features(tracker):
+    """The JAX tracker's own feature function (MonocularTracker._extract)
+    on an extractor jitted afresh as a new function object, so the
+    PGTPU_* switches in the environment are read when it traces."""
+
+    def extract(image, num_levels, scale, threshold, total_budget):
+        return jfeatures.extract_orb_features.__wrapped__(
+            image, num_levels=num_levels, scale=scale, threshold=threshold,
+            total_budget=total_budget,
+        )
+
+    fresh = jax.jit(extract, static_argnames=("num_levels", "scale", "threshold",
+                                              "total_budget"))
+    config = tracker.config
+
+    def features(gray):
+        gray = np.asarray(gray).astype(np.float32) / 255.0
+        kps = fresh(jnp.asarray(gray), num_levels=config.num_levels, scale=config.scale,
+                    threshold=config.fast_threshold, total_budget=config.total_budget)
+        return (tracker.camera.normalize(np.asarray(kps.xy)), np.asarray(kps.descriptors),
+                np.asarray(kps.valid), np.asarray(kps.level), np.asarray(kps.angle))
+
+    return features
+
+
+def jax_per_frame_run(out_dir, environment=None):
+    """The JAX package's pipeline on the golden video with per-frame
+    tracking (its CLI's configuration otherwise). ``environment``: PGTPU_*
+    switches, read by an extractor traced afresh. Returns (trajectory,
+    trackers)."""
     settings = jax_read_camera_settings(f"{INPUTS}/camera.yaml")
+    trackers = []
+    mp = pytest.MonkeyPatch()
+    for name, value in (environment or {}).items():
+        mp.setenv(name, value)
 
     def make_tracker():
         base = jpipeline.tracker_from_settings(settings)
-        config = dataclasses.replace(
-            base.config, track_chunk_frames=0, enable_loop_closing=False
+        config = dataclasses.replace(base.config, track_chunk_frames=0)
+        tracker = jtracking.MonocularTracker(base.camera, config)
+        if environment:
+            tracker._feature_fn = _fresh_jax_features(tracker)
+        trackers.append(tracker)
+        return tracker
+
+    try:
+        segments, consumed = jpipeline.track_video_segments(
+            jpipeline.video_frames(f"{INPUTS}/video.mp4"), settings, out_dir,
+            make_tracker=make_tracker,
         )
-        return jtracking.MonocularTracker(base.camera, config)
-
-    segments, consumed = jpipeline.track_video_segments(
-        jpipeline.video_frames(f"{INPUTS}/video.mp4"), settings, out,
-        make_tracker=make_tracker,
-    )
-    assert (segments, consumed) == (1, 120)
-    return read_trajectory(os.path.join(out, "trajectory-0000.json"))
+    finally:
+        mp.undo()
+    assert segments == 1
+    return read_trajectory(os.path.join(out_dir, "trajectory-0000.json")), trackers
 
 
-@pytest.fixture(scope="module")
-def port_replayed_trajectory(tmp_path_factory):
-    out = str(tmp_path_factory.mktemp("port_vo"))
+def port_replayed_run(out_dir, environment=None):
+    """The port's optical_trajectories CLI on the CPU with the reference's
+    draws replayed (two-view, relocalization, Sim(3)). ``environment``:
+    PGTPU_* switches for the CLI. Returns (trajectory, trackers, calls per
+    replayed solver)."""
     rng = {"key": jax.random.PRNGKey(0)}
-    calls = {"two_view": 0, "relocalize": 0}
+    calls = {"two_view": 0, "relocalize": 0, "sim3": 0}
+    trackers = []
 
     def next_key():
         rng["key"], sub = jax.random.split(rng["key"])
@@ -78,6 +126,8 @@ def port_replayed_trajectory(tmp_path_factory):
 
     two_view = tracking.two_view_reconstruction
     relocalize = tracking.relocalize
+    ransac_umeyama = sim3.ransac_umeyama
+    tracker_from_settings = pipeline.tracker_from_settings
 
     def replayed_two_view(p1, p2, mask, generator=None, **kwargs):
         calls["two_view"] += 1
@@ -96,38 +146,51 @@ def port_replayed_trajectory(tmp_path_factory):
         return relocalize(map_points, map_desc, map_valid, kp_norm, kp_desc, kp_valid,
                           samples=_replay(next_key(), weights, 6, 64), **kwargs)
 
+    def replayed_ransac_umeyama(points_a, points_b, valid, generator=None, **kwargs):
+        calls["sim3"] += 1
+        weights = jnp.asarray(valid.cpu().numpy()).astype(jnp.float64)
+        return ransac_umeyama(points_a, points_b, valid,
+                              samples=_replay(next_key(), weights, 3, 64), **kwargs)
+
+    def recording_tracker_from_settings(*args, **kwargs):
+        trackers.append(tracker_from_settings(*args, **kwargs))
+        return trackers[-1]
+
     mp = pytest.MonkeyPatch()
     mp.setattr(tracking, "two_view_reconstruction", replayed_two_view)
     mp.setattr(tracking, "relocalize", replayed_relocalize)
+    mp.setattr(sim3, "ransac_umeyama", replayed_ransac_umeyama)
+    mp.setattr(pipeline, "tracker_from_settings", recording_tracker_from_settings)
     mp.setenv("PILOTGURU_TPU_PLATFORM", "cpu")
+    for name, value in (environment or {}).items():
+        mp.setenv(name, value)
     try:
         rc = optical_trajectories.main([
             "--vocabulary_file=",
             f"--camera_settings={INPUTS}/camera.yaml",
             f"--in_video={INPUTS}/video.mp4",
-            f"--out_dir={out}",
+            f"--out_dir={out_dir}",
             "--dtype=auto",
         ])
     finally:
         mp.undo()
     assert rc == 0
     assert calls["two_view"] >= 1
-    return read_trajectory(os.path.join(out, "trajectory-0000.json"))
+    return read_trajectory(os.path.join(out_dir, "trajectory-0000.json")), trackers, calls
 
 
-def _rotation_degrees(qa, qb):
+def rotation_degrees(qa, qb):
     dot = np.abs(np.sum(qa * qb, axis=1)).clip(0.0, 1.0)
     return np.degrees(2.0 * np.arccos(dot))
 
 
-def test_port_follows_reference_tracker(port_replayed_trajectory, jax_slice_trajectory):
-    port, ref = port_replayed_trajectory, jax_slice_trajectory
+def assert_port_follows_reference(port, ref, rot_max, rot_mean, rmse_of_path, normal_deg):
     np.testing.assert_array_equal(port.frame_id, ref.frame_id)
     np.testing.assert_array_equal(port.time_usec, ref.time_usec)
 
-    rot = _rotation_degrees(port.rotations, ref.rotations)
-    assert rot.max() <= 0.1  # measured 0.033
-    assert rot.mean() <= 0.01  # measured 0.002
+    rot = rotation_degrees(port.rotations, ref.rotations)
+    assert rot.max() <= rot_max
+    assert rot.mean() <= rot_mean
 
     # Both start at the first camera with the same median-depth scale, so
     # the centres compare after a Sim(3) alignment as in test_torch_slice.
@@ -140,9 +203,52 @@ def test_port_follows_reference_tracker(port_replayed_trajectory, jax_slice_traj
     aligned = (c * (r @ (src - mu_s).T)).T + mu_d
     rmse = np.sqrt(((aligned - dst) ** 2).sum(1).mean())
     length = np.linalg.norm(np.diff(dst, axis=0), axis=1).sum()
-    assert rmse <= 1e-3 * length  # measured 1.4e-4 of the path length
+    assert rmse <= rmse_of_path * length
 
     na = np.cross(port.plane[0], port.plane[1])
     nb = np.cross(ref.plane[0], ref.plane[1])
     cos = abs(na @ nb) / np.linalg.norm(na) / np.linalg.norm(nb)
-    assert np.degrees(np.arccos(min(cos, 1.0))) <= 0.1  # measured 0.012
+    assert np.degrees(np.arccos(min(cos, 1.0))) <= normal_deg
+
+
+@pytest.fixture(scope="module")
+def jax_slice_run(tmp_path_factory):
+    return jax_per_frame_run(str(tmp_path_factory.mktemp("jax_vo")))
+
+
+@pytest.fixture(scope="module")
+def port_replayed_run_fixture(tmp_path_factory):
+    return port_replayed_run(str(tmp_path_factory.mktemp("port_vo")))
+
+
+def test_port_follows_reference_tracker(port_replayed_run_fixture, jax_slice_run):
+    port, ref = port_replayed_run_fixture[0], jax_slice_run[0]
+    assert len(ref) == 120
+    # Measured: 0.033 and 0.002 degrees, 1.4e-4 of the path, 0.012 degrees.
+    assert_port_follows_reference(port, ref, rot_max=0.1, rot_mean=0.01,
+                                  rmse_of_path=1e-3, normal_deg=0.1)
+
+
+def test_no_loop_closes_on_the_golden_video(port_replayed_run_fixture, jax_slice_run):
+    """The golden video holds no revisit. Both trackers keep 12 keyframes,
+    under the 20 that the per-keyframe vote sweep waits for, so loop closing
+    runs only its terminal attempt in finalize, and closes nothing."""
+    (_, port_trackers, _), (_, jax_trackers) = port_replayed_run_fixture, jax_slice_run
+    assert [t.stats["loop_closures"] for t in port_trackers] == [0]
+    assert [t.stats["loop_closures"] for t in jax_trackers] == [0]
+    assert port_trackers[0].config.enable_loop_closing
+    assert jax_trackers[0].config.enable_loop_closing
+
+
+def test_rotation_against_golden_within_the_draws(port_replayed_run_fixture, jax_slice_run):
+    """The per-frame rotation bar against the golden, which the reference's
+    chunked run wrote with its own draws: the port's replayed run may be no
+    farther from the golden than the JAX per-frame run is, plus the replay
+    bar of 0.1 degrees (test_port_follows_reference_tracker). Measured:
+    port 1.403, JAX 1.402 degrees worst; means 0.397 and 0.397."""
+    golden = read_trajectory(GOLDEN)
+    port, ref = port_replayed_run_fixture[0], jax_slice_run[0]
+    port_rot = rotation_degrees(port.rotations, golden.rotations)
+    ref_rot = rotation_degrees(ref.rotations, golden.rotations)
+    assert port_rot.max() <= ref_rot.max() + 0.1
+    assert port_rot.mean() <= ref_rot.mean() + 0.1
