@@ -8,27 +8,35 @@ Phases (each raises on failure, so the script exits non-zero):
   2. build the CUDA kernels from pilotguru_tpu_torch/csrc with nvcc (one
      process per source, all at once);
   3. K1 (FAST + NMS) against its plain PyTorch version at the 8 pyramid
-     level sizes of a 720p frame and at 1080p;
+     level sizes of a 720p frame and at 1080p, and its all-level call (one
+     launch over the 8 levels) against 8 plain calls;
   4. K2 (patch gather) against its plain version on a 720p image;
-  5. K3 (fused blur + patch gather) against its plain version on a 720p
-     image (random, near-border and corner keypoints) and at the 8 level
-     sizes;
+  5. K3 (fused blur + patch gather) against its plain version at the 8
+     level sizes (random, near-border and corner keypoints), and its
+     all-level call (one launch, the extractor's per-level budgets plus
+     border and corner keypoints) against 8 plain calls;
   6. the extractor on CUDA against the CPU, with both patch paths;
   7. the parallax path: optical_trajectories' segment loop
      (pilotguru_tpu_torch.vo.pipeline.track_video_segments) with the default
      configuration (loop closing on, blur-then-gather) on a 150-frame
      1280x720 synthetic ride at 2000 features / 8 levels; every frame in one
-     segment, no loop closed (the ride never revisits a place), K1 and K2
-     launched 8 times a frame, and the trajectory within TRUTH_BARS of the
-     ride's true poses;
+     segment, no loop closed (the ride never revisits a place), K1
+     launched once and K2 8 times a frame, K3 never, and the trajectory
+     within TRUTH_BARS of the ride's true poses;
   8. the loop ride: the same segment loop with PGTPU_PATCH_IMPL=fused's
      configuration on a 318-frame closed-circuit 1280x720 ride whose last
      30 frames revisit its start; every frame in one segment, at least one
-     loop closed, K1 and K3 launched 8 times a frame, and the trajectory
-     within LOOP_TRUTH_BARS, the end-to-start closure error among them;
-  9. one JSON line with every kernel (launches on the paths, error against
-     the plain version, device ms, plain ms, the card's bound, a library
-     call's ms where one exists), then, last, one JSON object
+     loop closed, K1 and K3 launched once a frame each, K2 never, and the
+     trajectory within LOOP_TRUTH_BARS, the end-to-start closure error
+     among them;
+  9. the kernels' times, one level at a time and all levels in one launch,
+     each beside its bound, and beside K1 two floors: an empty kernel on
+     its grid and a copy of its bytes;
+ 10. one JSON line with every kernel at the shape the paths give it (K1 and
+     K3: all 8 levels of a 720p frame in one launch; K2: level 0): launches
+     on the paths, error against the plain version, device ms, plain ms,
+     the card's bound, a library call's ms where one exists; then, last,
+     one JSON object
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
@@ -52,6 +60,8 @@ LEVEL_SHAPES_720P = [
     (720, 1280), (600, 1067), (500, 889), (417, 741),
     (347, 617), (289, 514), (241, 429), (201, 357),
 ]
+# pyramid_level_budgets(2000, 8, 1.2): the extractor's keypoints per level.
+LEVEL_BUDGETS_2000 = [434, 362, 302, 251, 209, 175, 145, 122]
 RIDE_FRAMES = 150
 RIDE_W, RIDE_H = 1280, 720
 RIDE_FX = 700.0
@@ -276,14 +286,19 @@ def time_ms(fn, reps: int = 30):
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    device_us = sum(
-        e.device_time_total for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    )
+    # The profiler now and then records none or only some of the kernels it
+    # should: such a measurement is taken again (at most twice).
+    for _ in range(3):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events and min(e.count for e in events) >= reps:
+            break
+    device_us = sum(e.device_time_total for e in events)
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -296,11 +311,14 @@ def time_ms(fn, reps: int = 30):
     return device_us / 1e3 / reps, statistics.median(times)
 
 
-def bound(bytes_moved: float, operations: float) -> dict:
+def bound(bytes_moved: float, operations: float, fused: bool = True) -> dict:
     """The least time the card could take: the larger of the bytes over the
-    memory rate and the float32 operations over the FP32 peak."""
+    memory rate and the float32 operations over the FP32 peak. The peak
+    counts a fused multiply-add as two operations; with ``fused`` false the
+    function's contract forbids fusing, every multiply and add issues alone
+    and the rate is half the peak."""
     by_bytes = 1e3 * bytes_moved / PEAK_BYTES_PER_S
-    by_ops = 1e3 * operations / PEAK_FP32_PER_S
+    by_ops = 1e3 * operations / (PEAK_FP32_PER_S if fused else PEAK_FP32_PER_S / 2)
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "bytes": bytes_moved, "operations": operations}
@@ -315,12 +333,92 @@ def _covered_pixels(h, w, rows, cols) -> int:
     return int(seen.sum())
 
 
+# Two floors for K1, built and timed by this script only (the port calls
+# neither): an empty kernel on K1's grid (what a launch of that many blocks
+# costs) and a copy that moves K1's bytes on the same grid (the image read
+# once, two outputs written).
+FLOORS_SOURCE = r"""
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+__global__ void copy_two_kernel(const float* __restrict__ in, float* __restrict__ a,
+                                float* __restrict__ b, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const float v = in[i];
+    a[i] = v;
+    b[i] = v;
+  }
+}
+extern "C" int pg_floor_empty(int blocks, int threads, void* stream) {
+  empty_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>();
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int pg_floor_copy_two(const void* in, void* a, void* b, int n, int blocks,
+                                 int threads, void* stream) {
+  copy_two_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(a), static_cast<float*>(b), n);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def build_floors():
+    """Compile FLOORS_SOURCE into the port's build directory; returns the
+    loaded library."""
+    import ctypes
+
+    from pilotguru_tpu_torch import cuda_lib
+
+    cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_lib.BUILD_DIR / "floors.cu"
+    target = cuda_lib.BUILD_DIR / f"libfloors.{os.getpid()}.so"
+    src.write_text(FLOORS_SOURCE)
+    subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", str(target), str(src)],
+                   check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(target))
+    lib.pg_floor_empty.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.pg_floor_copy_two.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def fast_tiles(shapes) -> int:
+    """Blocks of K1's grid: one per 32x32 tile of every image."""
+    return sum(-(-h // 32) * -(-w // 32) for h, w in shapes)
+
+
+def time_fast_floors(floors, images, reps: int = 30):
+    """(empty-kernel ms, copy ms) on K1's grid for ``images`` (device ms):
+    one launch of fast_tiles blocks of 256 threads; the copy reads all the
+    images' pixels once and writes them twice."""
+    import torch
+
+    from pilotguru_tpu_torch import cuda_lib
+
+    blocks = fast_tiles([tuple(i.shape) for i in images])
+    flat = torch.cat([i.reshape(-1) for i in images])
+    a, b = torch.empty_like(flat), torch.empty_like(flat)
+    stream = cuda_lib.current_stream(flat.device)
+
+    def launch_empty():
+        cuda_lib.check_launch("floor_empty", floors.pg_floor_empty(blocks, 256, stream))
+
+    def launch_copy():
+        cuda_lib.check_launch("floor_copy_two", floors.pg_floor_copy_two(
+            flat.data_ptr(), a.data_ptr(), b.data_ptr(), flat.numel(), blocks, 256, stream))
+
+    empty_ms = time_ms(launch_empty, reps)[0]
+    copy_ms = time_ms(launch_copy, reps)[0]
+    if not (torch.equal(a, flat) and torch.equal(b, flat)):
+        raise AssertionError("the floor copy did not copy")
+    return empty_ms, copy_ms
+
+
 def check_fast_kernel(rng):
     """K1 against its plain version at the 8 level sizes of a 720p frame and
     at 1080p. Returns the cases (image on the card, error) to time later."""
     import torch
 
-    from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_plain
+    from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_levels, fast_nms_plain
 
     cases = []
     for shape in LEVEL_SHAPES_720P + [(1080, 1920)]:
@@ -342,27 +440,72 @@ def check_fast_kernel(rng):
         print(f"K1 fast_nms {shape[0]}x{shape[1]}: raw max-abs {err:.3g}, NMS support "
               f"identical ({corners} corners)", flush=True)
         cases.append({"shape": shape, "err": err, "img": img})
+
+    levels = [case["img"] for case in cases[:len(LEVEL_SHAPES_720P)]]
+    got = fast_nms_levels(levels)
+    torch.cuda.synchronize()
+    for (raw_k, nms_k), img in zip(got, levels):
+        raw_p, nms_p = fast_nms_plain(img)
+        if not (torch.equal(raw_k, raw_p) and torch.equal(nms_k, nms_p)):
+            raise AssertionError(
+                f"K1 fast_nms_levels differs from fast_nms_plain at {tuple(img.shape)}: "
+                f"raw max-abs {float((raw_k - raw_p).abs().max())}"
+            )
+    print(f"K1 fast_nms_levels, {len(levels)} levels in one launch: raw and NMS equal "
+          "to the plain version at every level", flush=True)
     return cases
 
 
-def time_fast_kernel(cases):
-    from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_plain
+def _fast_bound(shapes) -> dict:
+    """K1 reads each image once and writes raw and nms; per pixel 16 tap
+    differences, 32 threshold compares and 9 maxima (the sums of the taps
+    over the threshold depend on the data and are not counted)."""
+    pixels = sum(h * w for h, w in shapes)
+    return bound(12 * pixels, 57 * pixels)
 
+
+def time_fast_kernel(cases, ride_gray):
+    """Device ms of K1 one level at a time (uniform-noise images, the
+    shapes of check_fast_kernel) and of the all-level call, on the noise
+    pyramid and on the pyramid of a ride frame, with the two floors on the
+    same grids. Returns (per-level rows, all-level row)."""
+    import torch
+
+    from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_levels, fast_nms_plain
+    from pilotguru_tpu_torch.vo.features import resize_linear
+
+    floors = build_floors()
+    levels = [case["img"] for case in cases[:len(LEVEL_SHAPES_720P)]]
     for case in cases:
         img, shape = case.pop("img"), case["shape"]
         ms, wall = time_ms(lambda: fast_nms(img))
         plain_ms, plain_wall = time_ms(lambda: fast_nms_plain(img), reps=10)
-        # Reads the image once, writes raw and nms; per pixel 16 tap
-        # differences, 32 threshold compares and 9 maxima (the sums of the
-        # taps over the threshold depend on the data and are not counted).
-        pixels = shape[0] * shape[1]
-        case.update(ms=ms, plain_ms=plain_ms, **bound(12 * pixels, 57 * pixels))
+        case.update(ms=ms, plain_ms=plain_ms, **_fast_bound([shape]))
         print(
             f"K1 fast_nms {shape[0]}x{shape[1]}: device ms kernel {ms:.4f}, plain "
             f"{plain_ms:.4f}, bound {case['bound_ms']:.4f}; wall ms kernel {wall:.4f}, "
             f"plain {plain_wall:.4f}", flush=True,
         )
-    return cases
+    empty_ms, copy_ms = time_fast_floors(floors, levels[:1])
+    print(f"K1 floors on the 720x1280 grid ({fast_tiles(LEVEL_SHAPES_720P[:1])} blocks): "
+          f"empty kernel {empty_ms:.4f} ms, copy of the same bytes {copy_ms:.4f} ms",
+          flush=True)
+
+    row = {"err": max(c["err"] for c in cases), **_fast_bound(LEVEL_SHAPES_720P)}
+    row["ms"], wall = time_ms(lambda: fast_nms_levels(levels))
+    row["plain_ms"], _ = time_ms(lambda: [fast_nms_plain(i) for i in levels], reps=10)
+    frame = torch.from_numpy(ride_gray.astype(np.float32) / 255.0).cuda()
+    ride_levels = [frame] + [resize_linear(frame, h, w) for h, w in LEVEL_SHAPES_720P[1:]]
+    row["ride_ms"], _ = time_ms(lambda: fast_nms_levels(ride_levels))
+    row["empty_ms"], row["copy_ms"] = time_fast_floors(floors, levels)
+    print(
+        f"K1 fast_nms_levels, 8 levels of 720p in one launch "
+        f"({fast_tiles(LEVEL_SHAPES_720P)} blocks): device ms kernel {row['ms']:.4f} on "
+        f"noise, {row['ride_ms']:.4f} on a ride frame, plain {row['plain_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f}; floors: empty kernel {row['empty_ms']:.4f}, copy of the "
+        f"same bytes {row['copy_ms']:.4f}; wall ms kernel {wall:.4f}", flush=True,
+    )
+    return cases, row
 
 
 def _keypoints_720p(rng, h, w, k=434):
@@ -441,6 +584,7 @@ def check_blur_patch_kernel(rng):
 
     from pilotguru_tpu_torch.vo.patch_kernel import (
         gather_blurred_patches,
+        gather_blurred_patches_levels,
         gather_blurred_patches_plain,
     )
 
@@ -460,16 +604,37 @@ def check_blur_patch_kernel(rng):
         print(f"K3 gather_blurred_patches {h}x{w}, K={yx.shape[0]} (434 random, 32 near "
               f"the border, 4 corners): exact", flush=True)
         cases.append({"shape": shape, "err": err, "img": img, "yx": yx[:434].contiguous()})
+
+    images = [case["img"] for case in cases]
+    yx_levels = [
+        torch.from_numpy(_keypoints_720p(rng, h, w, k)).cuda()
+        for (h, w), k in zip(LEVEL_SHAPES_720P, LEVEL_BUDGETS_2000)
+    ]
+    got = gather_blurred_patches_levels(images, yx_levels)
+    torch.cuda.synchronize()
+    for patches, img, yx in zip(got, images, yx_levels):
+        if not torch.equal(patches, gather_blurred_patches_plain(img, yx)):
+            raise AssertionError("K3 gather_blurred_patches_levels differs from the plain "
+                                 f"version at {tuple(img.shape)}")
+    print(f"K3 gather_blurred_patches_levels, 8 levels in one launch, K="
+          f"{[int(yx.shape[0]) for yx in yx_levels]} (the budgets of 2000 features, each "
+          "plus 32 near the border and 4 corners): exact at every level", flush=True)
+    for case, yx in zip(cases, yx_levels):
+        case["yx_budget"] = yx[: yx.shape[0] - 36].contiguous()
     return cases
 
 
 def time_blur_patch_kernel(cases):
+    """Device ms of K3 per level (434 keypoints each) and of the all-level
+    call at the extractor's budgets (2000 keypoints). Returns (per-level
+    rows, all-level row)."""
     import torch
 
     from pilotguru_tpu_torch.vo.patch_kernel import (
         PATCH_GATHER_RADIUS,
         _reflect_edge_index,
         gather_blurred_patches,
+        gather_blurred_patches_levels,
         gather_blurred_patches_plain,
         gaussian_kernel,
     )
@@ -477,29 +642,49 @@ def time_blur_patch_kernel(cases):
     taps, br = gaussian_kernel(2.0)
     size = 2 * PATCH_GATHER_RADIUS + 1
     win = size + 2 * br
+    offs = torch.arange(win, device="cuda")
+
+    def blur_bound(images_and_yx) -> dict:
+        # Reads the distinct window pixels, the keypoints and the taps once,
+        # writes the patches; per keypoint a vertical pass (size x win sums)
+        # and a horizontal one (size x size), each sum 17 multiplies and 16
+        # adds that the contract forbids to fuse.
+        covered = k = 0
+        for img, yx in images_and_yx:
+            h, w = img.shape
+            rows = _reflect_edge_index(yx[:, 0:1].long() + offs, h, PATCH_GATHER_RADIUS, br)
+            cols = _reflect_edge_index(yx[:, 1:2].long() + offs, w, PATCH_GATHER_RADIUS, br)
+            covered += _covered_pixels(h, w, rows.cpu().numpy(), cols.cpu().numpy())
+            k += yx.shape[0]
+        return bound(4 * covered + 8 * k + 4 * len(taps) + 4 * k * size * size,
+                     k * (size * win + size * size) * (2 * len(taps) - 1), fused=False)
+
+    images = [case["img"] for case in cases]
+    yx_levels = [case.pop("yx_budget") for case in cases]
     for case in cases:
         img, yx = case.pop("img"), case.pop("yx")
         h, w = case["shape"]
         ms, wall = time_ms(lambda: gather_blurred_patches(img, yx))
         plain_ms, plain_wall = time_ms(lambda: gather_blurred_patches_plain(img, yx))
-        offs = torch.arange(win, device="cuda")
-        rows = _reflect_edge_index(yx[:, 0:1].long() + offs, h, PATCH_GATHER_RADIUS, br)
-        cols = _reflect_edge_index(yx[:, 1:2].long() + offs, w, PATCH_GATHER_RADIUS, br)
-        covered = _covered_pixels(h, w, rows.cpu().numpy(), cols.cpu().numpy())
-        k = yx.shape[0]
-        # Reads the distinct window pixels, the keypoints and the taps once,
-        # writes the patches; per keypoint a vertical pass (size x win sums)
-        # and a horizontal one (size x size), each sum 17 multiplies and
-        # 16 adds.
-        case.update(ms=ms, plain_ms=plain_ms,
-                    **bound(4 * covered + 8 * k + 4 * len(taps) + 4 * k * size * size,
-                            k * (size * win + size * size) * (2 * len(taps) - 1)))
+        case.update(ms=ms, plain_ms=plain_ms, **blur_bound([(img, yx)]))
         print(
             f"K3 gather_blurred_patches {h}x{w}, K=434: device ms kernel {ms:.4f}, plain "
-            f"{plain_ms:.4f}, bound {case['bound_ms']:.4f} ({case['bound_by']}); wall ms "
-            f"kernel {wall:.4f}, plain {plain_wall:.4f}", flush=True,
+            f"{plain_ms:.4f}, bound {case['bound_ms']:.4f} ({case['bound_by']}; "
+            f"{case['bytes'] / 1e6:.2f} MB, {case['operations'] / 1e6:.1f} MFLOP unfused); "
+            f"wall ms kernel {wall:.4f}, plain {plain_wall:.4f}", flush=True,
         )
-    return cases
+    row = {"err": max(c["err"] for c in cases), **blur_bound(list(zip(images, yx_levels)))}
+    row["ms"], wall = time_ms(lambda: gather_blurred_patches_levels(images, yx_levels))
+    row["plain_ms"], _ = time_ms(
+        lambda: [gather_blurred_patches_plain(i, y) for i, y in zip(images, yx_levels)])
+    print(
+        f"K3 gather_blurred_patches_levels, 8 levels in one launch, K="
+        f"{sum(int(y.shape[0]) for y in yx_levels)}: device ms {row['ms']:.4f} (the kernel "
+        f"and the concatenation of the 8 keypoint sets), plain {row['plain_ms']:.4f}, bound "
+        f"{row['bound_ms']:.4f} ({row['bound_by']}; {row['bytes'] / 1e6:.2f} MB, "
+        f"{row['operations'] / 1e6:.1f} MFLOP unfused); wall ms {wall:.4f}", flush=True,
+    )
+    return cases, row
 
 
 def check_extractor_cuda_vs_cpu(gray, patch_impl):
@@ -575,13 +760,13 @@ class _StepClock:
             setattr(owner, attr, fn)
 
 
-def run_path(name, frames_u8, out_dir, patch_impl, kernels_on, kernels_off,
+def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
              pose_of, bars, period=None, expect_loops=False):
     """Drive optical_trajectories' segment loop over ``frames_u8`` on CUDA
     at 2000 features / 8 levels, with the kernel counts set to 0 just before
-    and read just after. Checks: every frame in one segment, each kernel of
-    ``kernels_on`` launched 8 times a frame and each of ``kernels_off`` not
-    at all, no plain version on a CUDA tensor, loop closures (at least one
+    and read just after. Checks: every frame in one segment, each kernel
+    launched ``launches_per_frame[kernel]`` times a frame (0: not at all),
+    no plain version on a CUDA tensor, loop closures (at least one
     with ``expect_loops``, else none) and the written trajectory within
     ``bars`` of the true poses. Returns the launch counts."""
     import torch
@@ -634,16 +819,15 @@ def run_path(name, frames_u8, out_dir, patch_impl, kernels_on, kernels_off,
     plain_calls = {c.name: c.plain_cuda_calls for c in counters}
     peak = torch.cuda.max_memory_allocated()
 
-    expected = 8 * consumed
     if consumed != len(frames_u8):
         raise AssertionError(f"{name}: consumed {consumed} of {len(frames_u8)} frames")
-    for kernel in kernels_on:
-        if launches[kernel] != expected:
+    if set(launches_per_frame) != set(launches):
+        raise AssertionError(f"{name}: no expected launch count for some kernel of "
+                             f"{sorted(launches)}")
+    for kernel, per_frame in launches_per_frame.items():
+        if launches[kernel] != per_frame * consumed:
             raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times, "
-                                 f"want 8 x {consumed} = {expected}")
-    for kernel in kernels_off:
-        if launches[kernel] != 0:
-            raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times, want 0")
+                                 f"want {per_frame} x {consumed} = {per_frame * consumed}")
     if any(plain_calls.values()):
         raise AssertionError(f"{name}: plain versions ran on CUDA tensors: {plain_calls}")
     if segments != 1 or len(trackers) != 1:
@@ -735,41 +919,49 @@ def main() -> int:
     try:
         parallax = run_path(
             "parallax path", ride, os.path.join(out_dir, "parallax"),
-            "blur_then_gather", ("fast_nms", "gather_patches"),
-            ("gather_blurred_patches",), ride_pose, TRUTH_BARS,
+            "blur_then_gather",
+            {"fast_nms": 1, "gather_patches": 8, "gather_blurred_patches": 0},
+            ride_pose, TRUTH_BARS,
         )
         loop = run_path(
             "loop ride", loop_ride, os.path.join(out_dir, "loop"), "fused",
-            ("fast_nms", "gather_blurred_patches"), ("gather_patches",), loop_pose,
+            {"fast_nms": 1, "gather_patches": 0, "gather_blurred_patches": 1}, loop_pose,
             LOOP_TRUTH_BARS, period=LOOP_PERIOD, expect_loops=True,
         )
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
-    k1, k2, k3 = time_fast_kernel(k1), time_patch_kernel(k2), time_blur_patch_kernel(k3)
+    (k1, k1_levels), k2 = time_fast_kernel(k1, loop_ride[0]), time_patch_kernel(k2)
+    k3, k3_levels = time_blur_patch_kernel(k3)
     torch.cuda.synchronize()
 
-    def entry(name, source, replaces, row, err):
+    def entry(name, source, replaces, shape, row, one_level=None):
+        """``row``: the kernel at the shape the paths give it; ``one_level``:
+        its one-level call at level 0, where the paths use the all-level one."""
         launches = {"parallax": parallax[name], "loop": loop[name]}
-        return {
+        out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": err,
+            "shape": shape, "max_abs_err": row["err"],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row.get("library_ms"),
         }
+        if one_level is not None:
+            out["one_level"] = {k: one_level[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                          "bound_by")}
+        return out
 
     print(f"card for the numbers below: {card}", flush=True)
     print(json.dumps({"kernels": [
         entry("fast_nms", "pilotguru_tpu_torch/csrc/fast_nms.cu",
-              "pilotguru_tpu/vo/fast_pallas.py:140", k1[0],
-              max(r["err"] for r in k1)),
+              "pilotguru_tpu/vo/fast_pallas.py:140", "8 levels of 720x1280, one launch",
+              k1_levels, k1[0]),
         entry("gather_patches", "pilotguru_tpu_torch/csrc/patch_gather.cu",
-              "pilotguru_tpu/vo/patch_pallas.py:256", k2, k2["err"]),
+              "pilotguru_tpu/vo/patch_pallas.py:256", "720x1280, K=434", k2),
         entry("gather_blurred_patches", "pilotguru_tpu_torch/csrc/blur_patch_gather.cu",
-              "pilotguru_tpu/vo/patch_pallas.py:176", k3[0],
-              max(r["err"] for r in k3)),
+              "pilotguru_tpu/vo/patch_pallas.py:176",
+              "8 levels of 720x1280, K=2000, one launch", k3_levels, k3[0]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

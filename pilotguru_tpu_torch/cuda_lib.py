@@ -38,15 +38,40 @@ NVCC_FLAGS = (
 
 _VOIDP = ctypes.c_void_p
 _INT = ctypes.c_int
+MAX_LEVELS = 8  # kMaxLevels of the level tables in csrc/
+
+
+class FastLevels(ctypes.Structure):
+    """PgFastLevels of csrc/fast_nms.cu: the images of one launch."""
+
+    _fields_ = [
+        ("img", _VOIDP * MAX_LEVELS), ("raw", _VOIDP * MAX_LEVELS),
+        ("nms", _VOIDP * MAX_LEVELS), ("h", _INT * MAX_LEVELS),
+        ("w", _INT * MAX_LEVELS), ("count", _INT),
+    ]
+
+
+class BlurLevels(ctypes.Structure):
+    """PgBlurLevels of csrc/blur_patch_gather.cu: the images of one launch
+    and how many of the keypoints each holds."""
+
+    _fields_ = [
+        ("img", _VOIDP * MAX_LEVELS), ("h", _INT * MAX_LEVELS),
+        ("w", _INT * MAX_LEVELS), ("num_keypoints", _INT * MAX_LEVELS),
+        ("count", _INT),
+    ]
+
+
+_FLOATP = ctypes.POINTER(ctypes.c_float)
 # C signature of each entry point: (argtypes, restype).
 _SIGNATURES = {
-    # img, raw, nms, h, w, threshold, stream
-    "pg_fast_nms": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, ctypes.c_float, _VOIDP], _INT),
+    # levels, threshold, stream
+    "pg_fast_nms_levels": ([ctypes.POINTER(FastLevels), ctypes.c_float, _VOIDP], _INT),
     # img, yx, out, h, w, k, radius, stream
     "pg_gather_patches": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _VOIDP], _INT),
-    # img, yx, taps, out, h, w, k, radius, blur radius, stream
-    "pg_blur_patch_gather": (
-        [_VOIDP, _VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _INT, _VOIDP], _INT
+    # levels, yx, taps (host), out, radius, blur radius, stream
+    "pg_blur_patch_gather_levels": (
+        [ctypes.POINTER(BlurLevels), _VOIDP, _FLOATP, _VOIDP, _INT, _INT, _VOIDP], _INT
     ),
 }
 

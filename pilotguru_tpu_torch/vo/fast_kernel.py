@@ -2,13 +2,15 @@
 
 Port of pilotguru_tpu/vo/fast_pallas.py::fast_nms_pallas (and of the plain
 ``fast_scores`` + ``nms3x3`` of pilotguru_tpu/vo/features.py). ``fast_nms``
-dispatches on the image's device: a CPU tensor runs ``fast_nms_plain``; a
+(one image) and ``fast_nms_levels`` (every level of a pyramid in one launch)
+dispatch on the image's device: a CPU tensor runs ``fast_nms_plain``; a
 CUDA tensor launches the hand-written kernel in csrc/fast_nms.cu or raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -84,29 +86,65 @@ def fast_nms_plain(image: torch.Tensor, threshold: float = DEFAULT_THRESHOLD):
     return raw, nms
 
 
+def _check_image(name: str, image: torch.Tensor) -> None:
+    if image.dtype != torch.float32 or image.dim() != 2:
+        raise ValueError(
+            f"{name}: want a 2-D float32 image, got {image.dtype} {tuple(image.shape)}"
+        )
+    if not image.is_contiguous():
+        raise ValueError(f"{name}: image must be contiguous")
+    h, w = image.shape
+    if h < 1 or w < 1 or h * w >= 2**31:
+        raise ValueError(f"{name}: unsupported image size {h}x{w}")
+
+
 def fast_nms(image: torch.Tensor, threshold: float = DEFAULT_THRESHOLD):
     """FAST response and its 3x3 NMS: image [H, W] float32 -> (raw, nms)."""
     if image.device.type == "cpu":
         return fast_nms_plain(image, threshold)
-    if image.device.type != "cuda":
-        raise ValueError(f"fast_nms: unsupported device {image.device}")
-    if image.dtype != torch.float32 or image.dim() != 2:
+    return fast_nms_levels([image], threshold)[0]
+
+
+def fast_nms_levels(
+    images: Sequence[torch.Tensor], threshold: float = DEFAULT_THRESHOLD
+) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+    """``fast_nms`` of every image of a pyramid: [(raw, nms), ...] in the
+    images' order. On CUDA one launch covers all levels (at most
+    ``cuda_lib.MAX_LEVELS``), and the outputs are views of one allocation."""
+    images = list(images)
+    if not 1 <= len(images) <= cuda_lib.MAX_LEVELS:
         raise ValueError(
-            f"fast_nms: want a 2-D float32 image, got {image.dtype} {tuple(image.shape)}"
+            f"fast_nms_levels: want 1 to {cuda_lib.MAX_LEVELS} images, got {len(images)}"
         )
-    if not image.is_contiguous():
-        raise ValueError("fast_nms: image must be contiguous")
-    h, w = image.shape
-    if h < 1 or w < 1 or h * w >= 2**31:
-        raise ValueError(f"fast_nms: unsupported image size {h}x{w}")
-    raw = torch.empty_like(image)
-    nms = torch.empty_like(image)
+    device = images[0].device
+    for image in images:
+        if image.device != device:
+            raise ValueError(
+                f"fast_nms_levels: images on different devices ({device}, {image.device})"
+            )
+        _check_image("fast_nms_levels", image)
+    if device.type == "cpu":
+        return [fast_nms_plain(image, threshold) for image in images]
+    if device.type != "cuda":
+        raise ValueError(f"fast_nms_levels: unsupported device {device}")
+    sizes = [image.numel() for image in images]
+    buffer = torch.empty((2 * sum(sizes),), dtype=torch.float32, device=device)
+    table = cuda_lib.FastLevels(count=len(images))
+    out, offset = [], 0
+    for level, (image, size) in enumerate(zip(images, sizes)):
+        raw = buffer[offset : offset + size].view(image.shape)
+        nms = buffer[offset + size : offset + 2 * size].view(image.shape)
+        offset += 2 * size
+        table.img[level] = image.data_ptr()
+        table.raw[level] = raw.data_ptr()
+        table.nms[level] = nms.data_ptr()
+        table.h[level], table.w[level] = image.shape
+        out.append((raw, nms))
     lib = cuda_lib.library()
-    err = lib.pg_fast_nms(
-        image.data_ptr(), raw.data_ptr(), nms.data_ptr(), h, w,
-        ctypes.c_float(_threshold_f32(threshold)),
-        cuda_lib.current_stream(image.device),
+    err = lib.pg_fast_nms_levels(
+        ctypes.byref(table), ctypes.c_float(_threshold_f32(threshold)),
+        cuda_lib.current_stream(device),
     )
     COUNTER.launches += 1
-    cuda_lib.check_launch("fast_nms", err)
-    return raw, nms
+    cuda_lib.check_launch("fast_nms_levels", err)
+    return out

@@ -1,15 +1,17 @@
 """ORB-style feature extraction on tensors (port of pilotguru_tpu/vo/features.py).
 
 Fixed-shape, like the reference: every pyramid level yields exactly its
-keypoint budget (invalid slots masked). Per level: antialiased linear
-resize of the level-0 image, FAST-9/16 response + 3x3 NMS (kernel K1,
-vo/fast_kernel.py), best-per-cell then global top-N selection, parabola
-sub-pixel refinement, one Gaussian-blurred 39x39 patch per keypoint,
+keypoint budget (invalid slots masked). In stages: antialiased linear
+resize of the level-0 image to every level; FAST-9/16 response + 3x3 NMS
+of all levels in one launch (kernel K1, vo/fast_kernel.py); per level,
+best-per-cell then global top-N selection and parabola sub-pixel
+refinement; one Gaussian-blurred 39x39 patch per keypoint; per level,
 intensity-centroid orientation and steered BRIEF from those patches. The
-blurred patches come from a 17-tap blur of the whole level and a gather
+blurred patches come from a 17-tap blur of each whole level and a gather
 (kernel K2, vo/patch_kernel.py; ``patch_impl="blur_then_gather"``, the
-default), or from one fused blur + gather (kernel K3, the same module;
-``patch_impl="fused"``, the reference's ``PGTPU_PATCH_IMPL=fused``).
+default), or from one fused blur + gather over all levels in one launch
+(kernel K3, the same module; ``patch_impl="fused"``, the reference's
+``PGTPU_PATCH_IMPL=fused``).
 
 The constant tables (FAST_CIRCLE, BRIEF_PATTERN, the BRIEF steering-bin
 matrix, the orientation moment weights) are built by the reference's numpy
@@ -26,11 +28,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pilotguru_tpu_torch.vo.fast_kernel import FAST_CIRCLE, fast_nms  # noqa: F401
+from pilotguru_tpu_torch.cuda_lib import MAX_LEVELS
+from pilotguru_tpu_torch.vo.fast_kernel import (  # noqa: F401
+    FAST_CIRCLE,
+    fast_nms,
+    fast_nms_levels,
+)
 from pilotguru_tpu_torch.vo.patch_kernel import (
     BLUR_SIGMA,
     PATCH_GATHER_RADIUS,
-    gather_blurred_patches,
+    gather_blurred_patches_levels,
     gather_patches,
     gaussian_kernel,
 )
@@ -351,18 +358,36 @@ def extract_orb_features(
     tables = tables_as_tensors(device)
     budgets = pyramid_level_budgets(total_budget, num_levels, scale)
     h, w = image.shape
+    shapes = level_shapes(h, w, num_levels, scale)
+    level_imgs = [image] + [resize_linear(image, lh, lw) for lh, lw in shapes[1:]]
+    # One launch of K1 (and of K3 below) takes MAX_LEVELS levels; a deeper
+    # pyramid goes in several.
+    chunks = [slice(i, i + MAX_LEVELS) for i in range(0, num_levels, MAX_LEVELS)]
+    responses = [
+        pair for chunk in chunks for pair in fast_nms_levels(level_imgs[chunk], threshold)
+    ]
+    selected = [
+        select_grid_topk(scores, budgets[level], cell)
+        for level, (_, scores) in enumerate(responses)
+    ]
+    yx_per_level = [yx for yx, _, _ in selected]
+    # One blurred patch per keypoint feeds both the orientation moments and
+    # BRIEF, as in the reference.
+    if patch_impl == "fused":
+        patches_per_level = [
+            patches for chunk in chunks
+            for patches in gather_blurred_patches_levels(level_imgs[chunk], yx_per_level[chunk])
+        ]
+    else:
+        patches_per_level = [
+            gather_patches(gaussian_blur(level_img), yx)
+            for level_img, yx in zip(level_imgs, yx_per_level)
+        ]
     parts = {name: [] for name in Keypoints._fields}
-    for level, (lh, lw) in enumerate(level_shapes(h, w, num_levels, scale)):
-        level_img = image if level == 0 else resize_linear(image, lh, lw)
-        raw, scores = fast_nms(level_img, threshold)
-        yx, resp, valid = select_grid_topk(scores, budgets[level], cell)
-        offsets = subpixel_offsets(raw, yx)
-        # One blurred patch per keypoint feeds both the orientation moments
-        # and BRIEF, as in the reference.
-        if patch_impl == "fused":
-            patches = gather_blurred_patches(level_img, yx)
-        else:
-            patches = gather_patches(gaussian_blur(level_img), yx)
+    for level, ((yx, resp, valid), patches) in enumerate(zip(selected, patches_per_level)):
+        offsets = subpixel_offsets(responses[level][0], yx)
+        # Orientation and BRIEF stay per level: a moment product of another
+        # height may sum in another order than the CPU's.
         angle = orientations_from_patches(patches, tables)
         desc = brief_from_patches(patches, angle, tables)
         refined = yx.to(torch.float32) + offsets

@@ -3,15 +3,17 @@ the Gaussian blur).
 
 Ports of pilotguru_tpu/vo/patch_pallas.py::gather_patches_pallas (and of the
 plain ``extract_patches`` of pilotguru_tpu/vo/features.py) and of
-``gather_blurred_patches_pallas``. ``gather_patches`` and
-``gather_blurred_patches`` dispatch on the image's device: a CPU tensor runs
+``gather_blurred_patches_pallas``. ``gather_patches``,
+``gather_blurred_patches`` and ``gather_blurred_patches_levels`` (every level
+of a pyramid in one launch) dispatch on the image's device: a CPU tensor runs
 the plain version; a CUDA tensor launches the hand-written kernel
 (csrc/patch_gather.cu, csrc/blur_patch_gather.cu) or raises.
 """
 
 from __future__ import annotations
 
-import functools
+import ctypes
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -32,11 +34,6 @@ def gaussian_kernel(sigma: float):
     x = np.arange(-radius, radius + 1, dtype=np.float64)
     k = np.exp(-(x**2) / (2.0 * sigma**2))
     return (k / k.sum()).astype(np.float32), radius
-
-
-@functools.lru_cache(maxsize=8)
-def _taps_tensor(sigma: float, device) -> torch.Tensor:
-    return torch.from_numpy(gaussian_kernel(sigma)[0]).to(device)
 
 
 def _check_image_and_yx(name: str, image: torch.Tensor, yx: torch.Tensor) -> None:
@@ -144,6 +141,21 @@ def gather_blurred_patches_plain(
     return out
 
 
+def _check_blur_shape(name: str, image: torch.Tensor, radius: int, sigma: float):
+    """K3 is compiled for the extractor's one shape: 39x39 patches (radius
+    19) under the 17-tap blur (sigma 2). Returns the taps as a host array
+    for the launch."""
+    taps, br = gaussian_kernel(sigma)
+    if radius != PATCH_GATHER_RADIUS or br != 8:
+        raise ValueError(
+            f"{name}: the kernel is built for radius {PATCH_GATHER_RADIUS} and a blur "
+            f"radius of 8 (sigma {BLUR_SIGMA}), got radius {radius}, sigma {sigma}"
+        )
+    if br >= min(image.shape):
+        raise ValueError(f"{name}: a {tuple(image.shape)} image is too small to reflect-pad")
+    return (ctypes.c_float * taps.shape[0])(*taps.tolist()), br
+
+
 def gather_blurred_patches(
     image: torch.Tensor, yx: torch.Tensor, radius: int = PATCH_GATHER_RADIUS,
     sigma: float = BLUR_SIGMA,
@@ -152,29 +164,50 @@ def gather_blurred_patches(
     [K, S, S] blurred patches (see gather_blurred_patches_plain)."""
     if image.device.type == "cpu":
         return gather_blurred_patches_plain(image, yx, radius, sigma)
-    if image.device.type != "cuda":
-        raise ValueError(f"gather_blurred_patches: unsupported device {image.device}")
-    _check_image_and_yx("gather_blurred_patches", image, yx)
-    _, br = gaussian_kernel(sigma)
-    h, w = image.shape
-    size = 2 * radius + 1
-    win = size + 2 * br
-    if radius < 0 or br >= min(h, w) or 2 * br + 1 > 64 \
-            or 4 * (win * win + size * win) > 48 * 1024:
+    return gather_blurred_patches_levels([image], [yx], radius, sigma)[0]
+
+
+def gather_blurred_patches_levels(
+    images: Sequence[torch.Tensor], yx_per_level: Sequence[torch.Tensor],
+    radius: int = PATCH_GATHER_RADIUS, sigma: float = BLUR_SIGMA,
+) -> List[torch.Tensor]:
+    """``gather_blurred_patches`` of every level of a pyramid: images[l]
+    [H_l, W_l] float32 and yx_per_level[l] [K_l, 2] int32 -> a list of
+    [K_l, S, S] patches. On CUDA one launch covers all levels (at most
+    ``cuda_lib.MAX_LEVELS``), and the outputs are views of one allocation."""
+    name = "gather_blurred_patches_levels"
+    images, yx_per_level = list(images), list(yx_per_level)
+    if not 1 <= len(images) <= cuda_lib.MAX_LEVELS or len(images) != len(yx_per_level):
         raise ValueError(
-            f"gather_blurred_patches: unsupported radius {radius} / sigma {sigma} "
-            f"for a {h}x{w} image"
+            f"{name}: want 1 to {cuda_lib.MAX_LEVELS} images and as many keypoint sets, "
+            f"got {len(images)} and {len(yx_per_level)}"
         )
-    k = yx.shape[0]
-    out = torch.empty((k, size, size), dtype=image.dtype, device=image.device)
-    if k == 0:
-        return out
-    taps = _taps_tensor(float(sigma), image.device)
-    lib = cuda_lib.library()
-    err = lib.pg_blur_patch_gather(
-        image.data_ptr(), yx.data_ptr(), taps.data_ptr(), out.data_ptr(),
-        h, w, k, radius, br, cuda_lib.current_stream(image.device),
-    )
-    BLUR_COUNTER.launches += 1
-    cuda_lib.check_launch("gather_blurred_patches", err)
-    return out
+    device = images[0].device
+    for image, yx in zip(images, yx_per_level):
+        if image.device != device:
+            raise ValueError(f"{name}: images on different devices ({device}, {image.device})")
+        _check_image_and_yx(name, image, yx)
+    if device.type == "cpu":
+        return [gather_blurred_patches_plain(image, yx, radius, sigma)
+                for image, yx in zip(images, yx_per_level)]
+    if device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {device}")
+    table = cuda_lib.BlurLevels(count=len(images))
+    for level, (image, yx) in enumerate(zip(images, yx_per_level)):
+        taps, br = _check_blur_shape(name, image, radius, sigma)
+        table.img[level] = image.data_ptr()
+        table.h[level], table.w[level] = image.shape
+        table.num_keypoints[level] = yx.shape[0]
+    counts = [yx.shape[0] for yx in yx_per_level]
+    size = 2 * radius + 1
+    out = torch.empty((sum(counts), size, size), dtype=torch.float32, device=device)
+    if sum(counts) > 0:
+        all_yx = yx_per_level[0] if len(yx_per_level) == 1 else torch.cat(yx_per_level)
+        lib = cuda_lib.library()
+        err = lib.pg_blur_patch_gather_levels(
+            ctypes.byref(table), all_yx.data_ptr(), taps, out.data_ptr(), radius, br,
+            cuda_lib.current_stream(device),
+        )
+        BLUR_COUNTER.launches += 1
+        cuda_lib.check_launch(name, err)
+    return list(out.split(counts))

@@ -1,6 +1,7 @@
 """Where the VO main path spends its time on the card.
 
     python3 profile_vo.py [--ride parallax|loop] [--frames N] [--trace DIR]
+    python3 profile_vo.py --extract-only [--ride parallax|loop] [--frames N]
 
 Runs one of chip_smoke's synthetic 720p rides (2000 features, 8 levels):
 the parallax ride (render_ride, blur-then-gather) or the loop ride
@@ -13,6 +14,12 @@ through the port's segment loop on CUDA and prints, per frame:
   launches, host-device copies, and the kernels that take the most device
   time.
 Writes the window's Chrome trace under ``--trace`` when given.
+
+With ``--extract-only`` it runs the feature extractor alone over the ride's
+frames (default 100), with both patch paths in turn, and prints per frame:
+host ms (each frame ends with a synchronisation, as the tracker's pull of
+the features does), device busy ms, kernels launched, and the launches of
+K1, K2 and K3 from their wrappers' counts.
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import time
 
 import torch
 
-from chip_smoke import render_loop_ride, render_ride, ride_settings
+from chip_smoke import card_name_and_power, render_loop_ride, render_ride, ride_settings
 from pilotguru_tpu_torch.vo import tracking
 from pilotguru_tpu_torch.vo.pipeline import VideoFrame, track_video_segments
 
@@ -56,6 +63,37 @@ def _timed(fn, name, totals):
     return wrapper
 
 
+def extract_only(ride) -> None:
+    from pilotguru_tpu_torch.vo import fast_kernel, patch_kernel
+    from pilotguru_tpu_torch.vo.features import PATCH_IMPLS, extract_orb_features
+
+    images = [torch.from_numpy(gray).cuda().to(torch.float32) / 255.0 for gray in ride]
+    counters = (fast_kernel.COUNTER, patch_kernel.COUNTER, patch_kernel.BLUR_COUNTER)
+    for patch_impl in PATCH_IMPLS + PATCH_IMPLS[::-1]:
+        for image in images[:5]:
+            extract_orb_features(image, num_levels=8, total_budget=2000, patch_impl=patch_impl)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.reset()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as profiler:
+            start = time.perf_counter()
+            for image in images:
+                extract_orb_features(image, num_levels=8, total_budget=2000,
+                                     patch_impl=patch_impl)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+        device = [e for e in profiler.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        n = len(images)
+        print(f"extract only ({patch_impl}), {n} frames: host "
+              f"{1e3 * seconds / n:.3f} ms/frame, device busy "
+              f"{sum(e.device_time_total for e in device) / 1e3 / n:.3f} ms/frame, "
+              f"{sum(e.count for e in device) / n:.1f} kernels and copies per frame; "
+              f"launches per frame {({c.name: c.launches / n for c in counters})}",
+              flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--ride", choices=["parallax", "loop"], default="parallax")
@@ -64,9 +102,17 @@ def main(argv=None) -> int:
     parser.add_argument("--window", type=int, nargs=2, default=(60, 90),
                         help="frames [first, last) profiled by torch.profiler")
     parser.add_argument("--trace", default="", help="directory for the Chrome trace")
+    parser.add_argument("--extract-only", action="store_true",
+                        help="time the feature extractor alone, both patch paths")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_vo measures the card: no CUDA device")
+    if args.extract_only:
+        frames = 100 if args.frames is None else args.frames
+        render = render_loop_ride if args.ride == "loop" else render_ride
+        print(f"card: {card_name_and_power()}", flush=True)
+        extract_only(list(render(frames)))
+        return 0
 
     if args.ride == "loop":
         ride = list(render_loop_ride() if args.frames is None else render_loop_ride(args.frames))

@@ -19,6 +19,7 @@ from pilotguru_tpu_torch.vo import patch_kernel
 from pilotguru_tpu_torch.vo.features import gaussian_blur
 from pilotguru_tpu_torch.vo.patch_kernel import (
     gather_blurred_patches,
+    gather_blurred_patches_levels,
     gather_blurred_patches_plain,
     gather_patches_plain,
 )
@@ -74,3 +75,63 @@ def test_cpu_dispatch_runs_plain_version_without_launching():
     assert torch.equal(gather_blurred_patches(img, yx), gather_blurred_patches_plain(img, yx))
     assert patch_kernel.BLUR_COUNTER.launches == 0
     assert patch_kernel.BLUR_COUNTER.plain_cuda_calls == 0
+
+
+LEVEL_SHAPES = [(96, 128), (80, 107), (67, 89), (56, 74)]
+
+
+def test_levels_equal_per_level_plain_and_pallas():
+    """gather_blurred_patches_levels on a seeded pyramid (interior, border
+    and corner keypoints, another count at each level): exactly the
+    per-level plain calls, and the Pallas kernel in interpret mode within
+    K3's bar (1.8e-7 measured, atol 1e-6 held, module docstring)."""
+    rng = np.random.default_rng(14)
+    images = [rng.uniform(0, 1, size=shape).astype(np.float32) for shape in LEVEL_SHAPES]
+    yx = [_keypoints(rng, h, w, 12 - 3 * level) for level, (h, w) in enumerate(LEVEL_SHAPES)]
+    patch_kernel.BLUR_COUNTER.reset()
+    got = gather_blurred_patches_levels([torch.from_numpy(i) for i in images],
+                                        [torch.from_numpy(k) for k in yx])
+    assert patch_kernel.BLUR_COUNTER.launches == 0
+    assert patch_kernel.BLUR_COUNTER.plain_cuda_calls == 0
+    assert len(got) == len(images)
+    for patches, img, level_yx in zip(got, images, yx):
+        want = gather_blurred_patches_plain(torch.from_numpy(img), torch.from_numpy(level_yx))
+        assert patches.shape == (level_yx.shape[0], 39, 39)
+        assert torch.equal(patches, want)
+        pallas = np.asarray(gather_blurred_patches_pallas(
+            jnp.asarray(img), jnp.asarray(level_yx), 39, interpret=True))
+        np.testing.assert_allclose(patches.numpy(), pallas, atol=1e-6, rtol=0)
+
+
+def test_levels_accepts_a_level_without_keypoints():
+    rng = np.random.default_rng(15)
+    images = [torch.from_numpy(rng.uniform(0, 1, size=s).astype(np.float32))
+              for s in LEVEL_SHAPES[:2]]
+    yx = [torch.tensor([[5, 6], [90, 120]], dtype=torch.int32),
+          torch.zeros((0, 2), dtype=torch.int32)]
+    got = gather_blurred_patches_levels(images, yx)
+    assert got[0].shape == (2, 39, 39) and got[1].shape == (0, 39, 39)
+
+
+@pytest.mark.parametrize("case", ["empty", "too_many", "counts_differ", "dtype", "yx_dtype",
+                                  "yx_shape", "device_mix", "yx_device", "device"])
+def test_levels_wrapper_rejects(case):
+    img = torch.zeros((40, 40))
+    yx = torch.zeros((3, 2), dtype=torch.int32)
+    meta_img = torch.zeros((40, 40), device="meta")
+    meta_yx = torch.zeros((3, 2), dtype=torch.int32, device="meta")
+    bad = {
+        "empty": ([], [], "1 to 8 images"),
+        "too_many": ([img] * 9, [yx] * 9, "1 to 8 images"),
+        "counts_differ": ([img, img], [yx], "as many keypoint sets"),
+        "dtype": ([img.double()], [yx], "2-D float32"),
+        "yx_dtype": ([img], [yx.long()], "int32"),
+        "yx_shape": ([img], [torch.zeros((3, 3), dtype=torch.int32)], "int32"),
+        "device_mix": ([img, meta_img], [yx, meta_yx], "different devices"),
+        "yx_device": ([img], [meta_yx], "on the image's device"),
+        "device": ([meta_img], [meta_yx], "unsupported device"),
+    }
+    images, keypoints, message = bad[case]
+    with pytest.raises(ValueError, match=message):
+        gather_blurred_patches_levels(images, keypoints)
+

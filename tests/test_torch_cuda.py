@@ -11,10 +11,17 @@ import numpy as np
 import pytest
 import torch
 
-from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_plain
-from pilotguru_tpu_torch.vo.features import extract_orb_features
+from pilotguru_tpu_torch.vo import fast_kernel, patch_kernel
+from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_levels, fast_nms_plain
+from pilotguru_tpu_torch.vo.features import (
+    extract_orb_features,
+    level_shapes,
+    pyramid_level_budgets,
+    resize_linear,
+)
 from pilotguru_tpu_torch.vo.patch_kernel import (
     gather_blurred_patches,
+    gather_blurred_patches_levels,
     gather_blurred_patches_plain,
     gather_patches,
     gather_patches_plain,
@@ -40,6 +47,29 @@ def test_fast_kernel_matches_plain(cuda, shape):
     torch.cuda.synchronize()
     assert torch.equal(raw, want_raw)  # same tap order: bit-identical
     assert torch.equal(nms, want_nms)
+
+
+def _pyramid(cuda, seed, num_levels=8):
+    img = np.random.default_rng(seed).uniform(0, 1, size=(720, 1280)).astype(np.float32)
+    img = torch.from_numpy(img).to(cuda)
+    shapes = level_shapes(720, 1280, num_levels, 1.2)
+    return [img] + [resize_linear(img, h, w) for h, w in shapes[1:]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_levels", [1, 3, 8])
+def test_fast_levels_kernel_matches_plain(cuda, num_levels):
+    """One launch over the pyramid equals the plain version level by level,
+    bit for bit, and counts as one launch."""
+    images = _pyramid(cuda, 3, num_levels)
+    fast_kernel.COUNTER.reset()
+    got = fast_nms_levels(images)
+    torch.cuda.synchronize()
+    assert fast_kernel.COUNTER.launches == 1
+    for (raw, nms), img in zip(got, images):
+        want_raw, want_nms = fast_nms_plain(img)
+        assert torch.equal(raw, want_raw)
+        assert torch.equal(nms, want_nms)
 
 
 @pytest.mark.cuda
@@ -70,6 +100,47 @@ def test_blur_patch_kernel_matches_plain(cuda, shape):
     ])
     yx = torch.from_numpy(yx.astype(np.int32)).to(cuda)
     assert torch.equal(gather_blurred_patches(img, yx), gather_blurred_patches_plain(img, yx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_levels", [1, 3, 8])
+def test_blur_patch_levels_kernel_matches_plain(cuda, num_levels):
+    """One launch over the pyramid at the extractor's per-level budgets,
+    plus near-border and corner keypoints and one level without any, equals
+    the plain version level by level, bit for bit."""
+    rng = np.random.default_rng(9)
+    images = _pyramid(cuda, 4, num_levels)
+    budgets = pyramid_level_budgets(2000, 8, 1.2)[:num_levels]
+    yx = []
+    for img, k in zip(images, budgets):
+        h, w = img.shape
+        pts = np.concatenate([
+            np.stack([rng.integers(0, h, k), rng.integers(0, w, k)], axis=1),
+            np.stack([rng.integers(0, 27, 8), rng.integers(0, w, 8)], axis=1),
+            np.stack([rng.integers(h - 27, h, 8), rng.integers(w - 27, w, 8)], axis=1),
+            np.array([[0, 0], [0, w - 1], [h - 1, 0], [h - 1, w - 1]]),
+        ])
+        yx.append(torch.from_numpy(pts.astype(np.int32)).to(cuda))
+    if num_levels > 1:
+        yx[1] = yx[1][:0]
+    patch_kernel.BLUR_COUNTER.reset()
+    got = gather_blurred_patches_levels(images, yx)
+    torch.cuda.synchronize()
+    assert patch_kernel.BLUR_COUNTER.launches == 1
+    for patches, img, level_yx in zip(got, images, yx):
+        assert torch.equal(patches, gather_blurred_patches_plain(img, level_yx))
+
+
+@pytest.mark.cuda
+def test_blur_patch_kernel_refuses_other_shapes(cuda):
+    """K3 is compiled for radius 19 under the 17-tap blur; the wrapper
+    raises for anything else instead of computing something else."""
+    img = torch.zeros((64, 64), device=cuda)
+    yx = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="built for radius 19"):
+        gather_blurred_patches(img, yx, radius=15)
+    with pytest.raises(ValueError, match="built for radius 19"):
+        gather_blurred_patches_levels([img], [yx], sigma=1.0)
 
 
 @pytest.mark.cuda

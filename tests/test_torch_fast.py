@@ -12,7 +12,7 @@ from pilotguru_tpu.vo.fast_pallas import fast_nms_pallas
 from pilotguru_tpu.vo.features import FAST_CIRCLE as JAX_FAST_CIRCLE
 from pilotguru_tpu.vo.features import fast_scores, nms3x3
 from pilotguru_tpu_torch.vo import fast_kernel
-from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_plain
+from pilotguru_tpu_torch.vo.fast_kernel import fast_nms, fast_nms_levels, fast_nms_plain
 
 torch.set_num_threads(1)
 THR = 20.0 / 255.0
@@ -73,4 +73,43 @@ def test_cpu_dispatch_runs_plain_version_without_launching():
 def test_wrapper_rejects_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         fast_nms(torch.zeros((8, 8), device="meta"))
+
+
+LEVEL_SHAPES = [(96, 128), (80, 107), (67, 89), (56, 74)]
+
+
+def test_levels_equal_per_level_plain_and_pallas():
+    """fast_nms_levels on a seeded pyramid: exactly the per-level plain
+    calls, and exactly the Pallas kernel in interpret mode (K1's bar)."""
+    rng = np.random.default_rng(5)
+    images = [rng.uniform(0, 1, size=shape).astype(np.float32) for shape in LEVEL_SHAPES]
+    fast_kernel.COUNTER.reset()
+    got = fast_nms_levels([torch.from_numpy(i) for i in images], THR)
+    assert len(got) == len(images)
+    assert fast_kernel.COUNTER.launches == 0 and fast_kernel.COUNTER.plain_cuda_calls == 0
+    for (raw, nms), img in zip(got, images):
+        want_raw, want_nms = fast_nms_plain(torch.from_numpy(img), THR)
+        assert torch.equal(raw, want_raw) and torch.equal(nms, want_nms)
+        p_raw, p_nms = fast_nms_pallas(jnp.asarray(img), threshold=THR, interpret=True)
+        np.testing.assert_array_equal(raw.numpy(), np.asarray(p_raw))
+        np.testing.assert_array_equal(nms.numpy(), np.asarray(p_nms))
+        assert raw.shape == img.shape and float(raw.sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["empty", "too_many", "dtype", "shape", "device_mix",
+                                  "not_contiguous", "device"])
+def test_levels_wrapper_rejects(case):
+    good = torch.zeros((16, 16))
+    bad = {
+        "empty": ([], "1 to 8 images"),
+        "too_many": ([good] * 9, "1 to 8 images"),
+        "dtype": ([good, good.double()], "2-D float32"),
+        "shape": ([good, torch.zeros((2, 16, 16))], "2-D float32"),
+        "device_mix": ([good, torch.zeros((16, 16), device="meta")], "different devices"),
+        "not_contiguous": ([good, torch.zeros((16, 32))[:, ::2]], "contiguous"),
+        "device": ([torch.zeros((16, 16), device="meta")], "unsupported device"),
+    }
+    images, message = bad[case]
+    with pytest.raises(ValueError, match=message):
+        fast_nms_levels(images)
 

@@ -37,7 +37,7 @@ from pilotguru_tpu.vo import pipeline as jpipeline
 from pilotguru_tpu.vo import tracking as jtracking
 from pilotguru_tpu.vo.camera import read_camera_settings as jax_read_camera_settings
 from pilotguru_tpu_torch.cli import optical_trajectories
-from pilotguru_tpu_torch.vo import pipeline, sim3, tracking
+from pilotguru_tpu_torch.vo import pipeline, sim3, tracking, twoview
 
 torch.set_num_threads(1)
 
@@ -80,14 +80,24 @@ def _fresh_jax_features(tracker):
     return features
 
 
-def jax_per_frame_run(out_dir, environment=None):
+def jax_per_frame_run(out_dir, environment=None, two_view_log=None):
     """The JAX package's pipeline on the golden video with per-frame
     tracking (its CLI's configuration otherwise). ``environment``: PGTPU_*
-    switches, read by an extractor traced afresh. Returns (trajectory,
-    trackers)."""
+    switches, read by an extractor traced afresh. ``two_view_log``: a list
+    that receives (match mask, result) of every two-view solve, as numpy
+    arrays. Returns (trajectory, trackers)."""
     settings = jax_read_camera_settings(f"{INPUTS}/camera.yaml")
     trackers = []
     mp = pytest.MonkeyPatch()
+    if two_view_log is not None:
+        solve = jtracking._two_view
+
+        def logged_two_view(p1, p2, mask, key):
+            res = solve(p1, p2, mask, key)
+            two_view_log.append((np.asarray(mask), type(res)(*(np.asarray(v) for v in res))))
+            return res
+
+        mp.setattr(jtracking, "_two_view", logged_two_view)
     for name, value in (environment or {}).items():
         mp.setenv(name, value)
 
@@ -111,11 +121,15 @@ def jax_per_frame_run(out_dir, environment=None):
     return read_trajectory(os.path.join(out_dir, "trajectory-0000.json")), trackers
 
 
-def port_replayed_run(out_dir, environment=None):
+def port_replayed_run(out_dir, environment=None, two_view_dtype=None, two_view_log=None):
     """The port's optical_trajectories CLI on the CPU with the reference's
     draws replayed (two-view, relocalization, Sim(3)). ``environment``:
-    PGTPU_* switches for the CLI. Returns (trajectory, trackers, calls per
-    replayed solver)."""
+    PGTPU_* switches for the CLI. ``two_view_dtype``: solve the two-view
+    initialization in this dtype (the reference solves it in float32, the
+    dtype of its keypoints, whatever the tracker's). ``two_view_log``: the
+    reference's two-view results (jax_per_frame_run), returned in their
+    order in the place of the port's own solves; each must answer the same
+    match mask. Returns (trajectory, trackers, calls per replayed solver)."""
     rng = {"key": jax.random.PRNGKey(0)}
     calls = {"two_view": 0, "relocalize": 0, "sim3": 0}
     trackers = []
@@ -132,6 +146,15 @@ def port_replayed_run(out_dir, environment=None):
     def replayed_two_view(p1, p2, mask, generator=None, **kwargs):
         calls["two_view"] += 1
         weights = jnp.asarray(mask.cpu().numpy()).astype(jnp.float32) + 1e-6
+        if two_view_log is not None:
+            next_key()  # the reference's solve consumed a key
+            ref_mask, ref = two_view_log[calls["two_view"] - 1]
+            np.testing.assert_array_equal(mask.cpu().numpy(), ref_mask)
+            fields = (torch.from_numpy(np.array(v)) for v in ref)
+            return twoview.TwoViewResult(
+                *(t.to(p1.dtype) if t.is_floating_point() else t for t in fields))
+        if two_view_dtype is not None:
+            p1, p2 = p1.to(two_view_dtype), p2.to(two_view_dtype)
         return two_view(p1, p2, mask, samples=_replay(next_key(), weights, 8, 128),
                         **kwargs)
 
