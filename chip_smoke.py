@@ -10,7 +10,9 @@ Phases (each raises on failure, so the script exits non-zero):
   3. K1 (FAST + NMS) against its plain PyTorch version at the 8 pyramid
      level sizes of a 720p frame and at 1080p, and its all-level call (one
      launch over the 8 levels) against 8 plain calls;
-  4. K2 (patch gather) against its plain version on a 720p image;
+  4. K2 (patch gather) against its plain version on a 720p image, and its
+     all-level call (one launch, the extractor's per-level budgets plus
+     border and corner keypoints) against 8 plain calls;
   5. K3 (fused blur + patch gather) against its plain version at the 8
      level sizes (random, near-border and corner keypoints), and its
      all-level call (one launch, the extractor's per-level budgets plus
@@ -20,20 +22,25 @@ Phases (each raises on failure, so the script exits non-zero):
      (pilotguru_tpu_torch.vo.pipeline.track_video_segments) with the default
      configuration (loop closing on, blur-then-gather) on a 150-frame
      1280x720 synthetic ride at 2000 features / 8 levels; every frame in one
-     segment, no loop closed (the ride never revisits a place), K1
-     launched once and K2 8 times a frame, K3 never, and the trajectory
-     within TRUTH_BARS of the ride's true poses;
+     segment, no loop closed (the ride never revisits a place), K1 and K2
+     launched once a frame each, K3 never, and the trajectory within
+     TRUTH_BARS of the ride's true poses;
   8. the loop ride: the same segment loop with PGTPU_PATCH_IMPL=fused's
      configuration on a 318-frame closed-circuit 1280x720 ride whose last
      30 frames revisit its start; every frame in one segment, at least one
      loop closed, K1 and K3 launched once a frame each, K2 never, and the
      trajectory within LOOP_TRUTH_BARS, the end-to-start closure error
      among them;
-  9. the kernels' times, one level at a time and all levels in one launch,
+  9. fit_motion's path (run_fit_motion): fit_motion_arrays on a 300 s and
+     a 1,800 s IMU + GPS ride in float32 and float64, timed (ride-s/s,
+     per-stage ms, peak device memory), each within the velocity RMSE bar
+     of the ride's true speed, and the card's float64 against the port's
+     float64 on the CPU;
+ 10. the kernels' times, one level at a time and all levels in one launch,
      each beside its bound, and beside K1 two floors: an empty kernel on
      its grid and a copy of its bytes;
- 10. one JSON line with every kernel at the shape the paths give it (K1 and
-     K3: all 8 levels of a 720p frame in one launch; K2: level 0): launches
+ 11. one JSON line with every kernel at the shape the paths give it (all 8
+     levels of a 720p frame in one launch): launches
      on the paths, error against the plain version, device ms, plain ms,
      the card's bound, a library call's ms where one exists; then, last,
      one JSON object
@@ -524,11 +531,17 @@ def _keypoints_720p(rng, h, w, k=434):
 
 
 def check_patch_kernel(rng):
-    """K2 against its plain version on a 720p image. Returns the case to
-    time later."""
+    """K2 against its plain version on a 720p image, and its all-level call
+    (one launch over the 8 level sizes, the extractor's budgets plus border
+    and corner keypoints) against 8 plain calls. Returns (the one-level
+    case, the all-level case) to time later."""
     import torch
 
-    from pilotguru_tpu_torch.vo.patch_kernel import gather_patches, gather_patches_plain
+    from pilotguru_tpu_torch.vo.patch_kernel import (
+        gather_patches,
+        gather_patches_levels,
+        gather_patches_plain,
+    )
 
     h, w = 720, 1280
     img = torch.from_numpy(rng.uniform(0, 1, size=(h, w)).astype(np.float32)).cuda()
@@ -541,40 +554,107 @@ def check_patch_kernel(rng):
         raise AssertionError(f"K2 gather_patches differs from plain: max-abs {err}")
     print(f"K2 gather_patches 720p, K={yx.shape[0]} (434 random, 32 near the border, "
           f"4 corners): exact", flush=True)
-    return {"err": err, "img": img, "yx": yx[:434].contiguous()}
+
+    images = [img] + [torch.from_numpy(rng.uniform(0, 1, size=shape).astype(np.float32)).cuda()
+                      for shape in LEVEL_SHAPES_720P[1:]]
+    yx_levels = [torch.from_numpy(_keypoints_720p(rng, h, w, k)).cuda()
+                 for (h, w), k in zip(LEVEL_SHAPES_720P, LEVEL_BUDGETS_2000)]
+    got = gather_patches_levels(images, yx_levels)
+    torch.cuda.synchronize()
+    for patches, image, level_yx in zip(got, images, yx_levels):
+        want = gather_patches_plain(image, level_yx)
+        if not torch.equal(patches, want):
+            raise AssertionError("K2 gather_patches_levels differs from the plain version at "
+                                 f"{tuple(image.shape)}: max-abs "
+                                 f"{float((patches - want).abs().max())}")
+    print(f"K2 gather_patches_levels, 8 levels in one launch, K="
+          f"{[int(p.shape[0]) for p in yx_levels]} (the budgets of 2000 features, each plus "
+          "32 near the border and 4 corners): exact at every level", flush=True)
+    one = {"err": err, "img": img, "yx": yx[:434].contiguous()}
+    every = {"err": err, "images": images,
+             "yx": [p[: p.shape[0] - 36].contiguous() for p in yx_levels]}
+    return one, every
 
 
-def time_patch_kernel(case):
+def _patch_windows(img, yx):
+    """K2's clamped window row and column indices ([K, 39] each)."""
     import torch
 
+    from pilotguru_tpu_torch.vo.patch_kernel import PATCH_GATHER_RADIUS
+
+    h, w = img.shape
+    offs = torch.arange(-PATCH_GATHER_RADIUS, PATCH_GATHER_RADIUS + 1, device=yx.device)
+    rows = (yx[:, 0:1].long().clamp(0, h - 1) + offs).clamp(0, h - 1)
+    cols = (yx[:, 1:2].long().clamp(0, w - 1) + offs).clamp(0, w - 1)
+    return rows, cols
+
+
+def _patch_bound(images_and_yx) -> dict:
+    """K2 reads the distinct pixels the windows cover and the keypoints once
+    and writes the patches."""
+    covered = k = 0
+    for img, yx in images_and_yx:
+        rows, cols = _patch_windows(img, yx)
+        covered += _covered_pixels(*img.shape, rows.cpu().numpy(), cols.cpu().numpy())
+        k += yx.shape[0]
+    size = rows.shape[1]
+    return {**bound(4 * covered + 8 * k + 4 * k * size * size, 0), "covered": covered}
+
+
+def _library_gather(images_and_yx):
+    """The library yardstick for K2: one advanced-index gather from the
+    levels' pixels laid end to end, with the clamped window indices (and the
+    levels' offsets) precomputed."""
+    import torch
+
+    flat, index, base = [], [], 0
+    for img, yx in images_and_yx:
+        rows, cols = _patch_windows(img, yx)
+        index.append(base + rows[:, :, None] * img.shape[1] + cols[:, None, :])
+        flat.append(img.reshape(-1))
+        base += img.numel()
+    flat = torch.cat(flat)
+    index = torch.cat(index)
+    return lambda: flat[index]
+
+
+def time_patch_kernel(cases):
+    """Device ms of K2 one level (720p, K=434) and of the all-level call at
+    the extractor's budgets (8 levels, K=2000), each beside its plain
+    version, the library gather and the bound. Returns (one-level row,
+    all-level row)."""
     from pilotguru_tpu_torch.vo.patch_kernel import (
-        PATCH_GATHER_RADIUS,
         gather_patches,
+        gather_patches_levels,
         gather_patches_plain,
     )
 
-    img, yx = case.pop("img"), case.pop("yx")
-    h, w = img.shape
+    one, every = cases
+    img, yx = one.pop("img"), one.pop("yx")
     ms, wall = time_ms(lambda: gather_patches(img, yx))
     plain_ms, plain_wall = time_ms(lambda: gather_patches_plain(img, yx))
-    # The library yardstick: one advanced-index gather with the clamped
-    # window indices precomputed.
-    size = 2 * PATCH_GATHER_RADIUS + 1
-    offs = torch.arange(size, device="cuda") - PATCH_GATHER_RADIUS
-    rows = (yx[:, 0:1].long() + offs).clamp(0, h - 1)
-    cols = (yx[:, 1:2].long() + offs).clamp(0, w - 1)
-    library_ms, library_wall = time_ms(lambda: img[rows[:, :, None], cols[:, None, :]])
-    covered = _covered_pixels(h, w, rows.cpu().numpy(), cols.cpu().numpy())
-    k = yx.shape[0]
-    case.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                **bound(4 * covered + 8 * k + 4 * k * size * size, 0))
+    library_ms, library_wall = time_ms(_library_gather([(img, yx)]))
+    one.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **_patch_bound([(img, yx)]))
     print(
         f"K2 gather_patches 720p, K=434: device ms kernel {ms:.4f}, plain "
         f"{plain_ms:.4f}, library gather {library_ms:.4f}, bound "
-        f"{case['bound_ms']:.4f} ({covered} image pixels read); wall ms kernel "
+        f"{one['bound_ms']:.4f} ({one['covered']} image pixels read); wall ms kernel "
         f"{wall:.4f}, plain {plain_wall:.4f}, library {library_wall:.4f}", flush=True,
     )
-    return case
+    images, yx_levels = every.pop("images"), every.pop("yx")
+    pairs = list(zip(images, yx_levels))
+    ms, wall = time_ms(lambda: gather_patches_levels(images, yx_levels))
+    plain_ms, _ = time_ms(lambda: [gather_patches_plain(i, y) for i, y in pairs])
+    library_ms, library_wall = time_ms(_library_gather(pairs))
+    every.update(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **_patch_bound(pairs))
+    print(
+        f"K2 gather_patches_levels, 8 levels in one launch, K="
+        f"{sum(int(y.shape[0]) for y in yx_levels)}: device ms kernel {ms:.4f}, plain "
+        f"{plain_ms:.4f}, library gather {library_ms:.4f}, bound {every['bound_ms']:.4f} "
+        f"({every['bytes'] / 1e6:.2f} MB, {every['covered']} image pixels read); wall ms "
+        f"kernel {wall:.4f}, library {library_wall:.4f}", flush=True,
+    )
+    return one, every
 
 
 def check_blur_patch_kernel(rng):
@@ -873,6 +953,196 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     return launches
 
 
+def make_imu_ride(duration_sec: float = 300.0, imu_hz: float = 200.0,
+                  gps_hz: float = 1.0, climb_m_s: float = 0.0):
+    """A synthetic IMU + GPS ride for fit_motion, the JAX package's bench
+    ride (bench.py::make_ride, rebuilt here with numpy): two IMU streams at
+    ``imu_hz`` on offset grids, GPS at ``gps_hz``, a speed of 9 + 3 sin(2 pi
+    t / 37) m/s and a heading of 0.6 sin(2 pi t / 23) on a level road. With
+    ``climb_m_s`` the road has hills: a vertical velocity of that amplitude
+    (period 17 s), which the GPS speed includes. It has no noise, so no seed.
+    Returns (fit_motion_arrays' six arrays, the true speed as a function of
+    time in microseconds)."""
+    t0 = 1_000_000
+
+    def grid(hz, phase):
+        n = int(duration_sec * hz)
+        return t0 + phase + (np.arange(n) * (1e6 / hz)).astype(np.int64)
+
+    rot_t = grid(imu_hz, 0)
+    acc_t = grid(imu_hz, int(0.37 * 1e6 / imu_hz))
+    gps_t = grid(gps_hz, 137)
+
+    def sec(t):
+        return (t - t0) * 1e-6
+
+    def speed(t):
+        return 9.0 + 3.0 * np.sin(2 * np.pi * t / 37.0)
+
+    def climb(t):
+        return climb_m_s * np.sin(2 * np.pi * t / 17.0)
+
+    def heading(t):
+        return 0.6 * np.sin(2 * np.pi * t / 23.0)
+
+    def yaw(t):
+        return 0.6 * (2 * np.pi / 23.0) * np.cos(2 * np.pi * t / 23.0)
+
+    rates = np.zeros((rot_t.size, 3))
+    rates[:, 2] = yaw(sec(rot_t))
+    t = sec(acc_t)
+    th, s, w = heading(t), speed(t), yaw(t)
+    ds = 3.0 * (2 * np.pi / 37.0) * np.cos(2 * np.pi * t / 37.0)
+    a_world = np.stack(
+        [ds * np.cos(th) - s * np.sin(th) * w,
+         ds * np.sin(th) + s * np.cos(th) * w,
+         climb_m_s * (2 * np.pi / 17.0) * np.cos(2 * np.pi * t / 17.0) + 9.81],
+        axis=-1,
+    )
+    accs = np.stack(
+        [np.cos(th) * a_world[:, 0] + np.sin(th) * a_world[:, 1],
+         -np.sin(th) * a_world[:, 0] + np.cos(th) * a_world[:, 1],
+         a_world[:, 2]],
+        axis=-1,
+    )
+
+    def true_speed(t_usec):
+        return np.hypot(speed(sec(t_usec)), climb(sec(t_usec)))
+
+    return (rot_t, rates, acc_t, accs, gps_t, true_speed(gps_t)), true_speed
+
+
+# fit_motion: the bar on the velocity RMSE against the ride's true speed (the
+# JAX bench's), and how close the card's float64 run must come to the
+# port's own float64 run on the CPU. On a level road (yaw only) the
+# Gauss-Newton normal equations are singular in the vertical direction, so
+# rounding alone decides which nearby minimum a window settles in (the
+# reference moves as much when its inputs move by 1e-15, PERF.md): there the
+# bars are on the outcome. With hills every window is well conditioned and
+# the two devices agree to rounding.
+FIT_RMSE_BAR = 0.5
+FIT_RIDES = (300.0, 1800.0)
+FIT_LEVEL_BARS = {"speed_max": 0.1, "speed_median": 0.005, "rmse_gap": 0.002,
+                  "forward_axis_deg": 5.0, "vertical_axis": 1e-9, "steering": 1e-9}
+FIT_HILLS_BARS = {"speed_max": 1e-6, "speed_median": 1e-6, "rmse_gap": 1e-6,
+                  "forward_axis_deg": 1e-4, "vertical_axis": 1e-9, "steering": 1e-9}
+
+
+def _fit_distance(a, b, true_speed) -> dict:
+    """How far fit_motion result ``a`` lies from ``b``: speeds at the same
+    event times, the RMSEs against the true speed, the axes."""
+    if not (np.array_equal(a.velocity_times_usec, b.velocity_times_usec)
+            and np.array_equal(a.steering_times_usec, b.steering_times_usec)):
+        raise AssertionError("fit_motion: the two runs cover different event times")
+    diff = np.abs(a.velocities_m_s - b.velocities_m_s)
+    truth = true_speed(a.velocity_times_usec)
+
+    def rmse(r):
+        return float(np.sqrt(np.mean((r.velocities_m_s - truth) ** 2)))
+
+    cos = float(a.forward_axis @ b.forward_axis
+                / (np.linalg.norm(a.forward_axis) * np.linalg.norm(b.forward_axis)))
+    return {
+        "speed_max": float(diff.max()), "speed_median": float(np.median(diff)),
+        "rmse_gap": abs(rmse(a) - rmse(b)),
+        "forward_axis_deg": float(np.degrees(np.arccos(min(max(cos, -1.0), 1.0)))),
+        "vertical_axis": float(np.abs(a.vertical_axis - b.vertical_axis).max()),
+        "steering": float(np.abs(a.steering_angular_velocities
+                                 - b.steering_angular_velocities).max()),
+    }
+
+
+def run_fit_motion(reps: int = 3):
+    """fit_motion's path on the card: fit_motion_arrays (the library entry
+    of the fit_motion CLI) on the bench's 300 s ride and on a 1,800 s drive,
+    in float32 and float64, one warm-up call and ``reps`` timed calls each,
+    with the kernel counts set to 0 before and read after (this path
+    launches none of them). Checks each result (finite, the RMSE against the
+    true speed within FIT_RMSE_BAR) and the card's float64 against the
+    port's float64 on the CPU: the 300 s ride within FIT_LEVEL_BARS, and
+    the same ride with hills within FIT_HILLS_BARS. Returns the rows."""
+    import torch
+
+    from pilotguru_tpu_torch.calib.fit_motion import FitMotionConfig, fit_motion_arrays
+    from pilotguru_tpu_torch.utils.profiling import StageTimer
+    from pilotguru_tpu_torch.vo import fast_kernel, patch_kernel
+
+    counters = (fast_kernel.COUNTER, patch_kernel.COUNTER, patch_kernel.BLUR_COUNTER)
+
+    def config(dtype, device="cuda"):
+        return FitMotionConfig(optimization_iters=30, dtype=dtype, device=device)
+
+    def rmse(result, true_speed):
+        err = result.velocities_m_s - true_speed(result.velocity_times_usec)
+        return float(np.sqrt(np.mean(err ** 2)))
+
+    rows, card = [], {}
+    for duration in FIT_RIDES:
+        arrays, true_speed = make_imu_ride(duration)
+        for dtype in (torch.float32, torch.float64):
+            fit_motion_arrays(*arrays, config(dtype))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters:
+                c.reset()
+            seconds, timers = [], []
+            for _ in range(reps):
+                timers.append(StageTimer("fit_motion"))
+                start = time.perf_counter()
+                result = fit_motion_arrays(*arrays, config(dtype), timer=timers[-1])
+                seconds.append(time.perf_counter() - start)
+            launches = {c.name: c.launches for c in counters}
+            peak = torch.cuda.max_memory_allocated()
+            ok = (np.isfinite(result.velocities_m_s).all()
+                  and result.velocities_m_s.shape == result.velocity_times_usec.shape
+                  and result.velocities_m_s.size > 0.9 * 400 * duration
+                  and np.isfinite(result.window_params).all())
+            if not ok or any(launches.values()):
+                raise AssertionError(f"fit_motion {duration:.0f} s {dtype}: malformed result "
+                                     f"or kernel launches {launches}")
+            error = rmse(result, true_speed)
+            if not error <= FIT_RMSE_BAR:
+                raise AssertionError(f"fit_motion {duration:.0f} s {dtype}: velocity RMSE "
+                                     f"{error} m/s over the bar {FIT_RMSE_BAR}")
+            best = timers[int(np.argmin(seconds))]
+            row = {"ride_s": duration, "dtype": str(dtype).split(".")[-1],
+                   "windows": int(result.window_params.shape[0]),
+                   "events": int(result.velocities_m_s.size),
+                   "seconds": seconds, "ride_s_per_s": [duration / t for t in seconds],
+                   "stage_ms_best": {k: 1e3 * v for k, v in best.as_dict().items()},
+                   "peak_device_mib": peak / 2**20, "rmse_m_s": error,
+                   "max_window_loss": float(result.window_final_loss.max())}
+            rows.append(row)
+            print(f"fit_motion on the card: {json.dumps(row)}", flush=True)
+            card[duration, dtype] = result
+
+    short = FIT_RIDES[0]
+    arrays, true_speed = make_imu_ride(short)
+    start = time.perf_counter()
+    cpu64 = fit_motion_arrays(*arrays, config(torch.float64, "cpu"))
+    cpu_seconds = time.perf_counter() - start
+    hills, hills_speed = make_imu_ride(short, climb_m_s=1.5)
+    checks = (
+        ("level road, card float64 against CPU float64", card[short, torch.float64], cpu64,
+         true_speed, FIT_LEVEL_BARS),
+        ("with hills, card float64 against CPU float64",
+         fit_motion_arrays(*hills, config(torch.float64)),
+         fit_motion_arrays(*hills, config(torch.float64, "cpu")), hills_speed, FIT_HILLS_BARS),
+    )
+    for name, a, b, speed_of, bars in checks:
+        distance = _fit_distance(a, b, speed_of)
+        print(f"fit_motion {short:.0f} s ride, {name}: {json.dumps(distance)}; bars "
+              f"{json.dumps(bars)}", flush=True)
+        over = {k: v for k, v in distance.items() if not v <= bars[k]}
+        if over:
+            raise AssertionError(f"fit_motion, {name}: over the bars: {over}")
+    distance = _fit_distance(card[short, torch.float32], cpu64, true_speed)
+    print(f"fit_motion {short:.0f} s ride, card float32 against CPU float64 (printed, no "
+          f"bar): {json.dumps(distance)}; the CPU's float64 run took {cpu_seconds:.2f} s, "
+          f"RMSE {rmse(cpu64, true_speed):.5f}", flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -920,7 +1190,7 @@ def main() -> int:
         parallax = run_path(
             "parallax path", ride, os.path.join(out_dir, "parallax"),
             "blur_then_gather",
-            {"fast_nms": 1, "gather_patches": 8, "gather_blurred_patches": 0},
+            {"fast_nms": 1, "gather_patches": 1, "gather_blurred_patches": 0},
             ride_pose, TRUTH_BARS,
         )
         loop = run_path(
@@ -930,8 +1200,9 @@ def main() -> int:
         )
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+    run_fit_motion()
 
-    (k1, k1_levels), k2 = time_fast_kernel(k1, loop_ride[0]), time_patch_kernel(k2)
+    (k1, k1_levels), (k2, k2_levels) = time_fast_kernel(k1, loop_ride[0]), time_patch_kernel(k2)
     k3, k3_levels = time_blur_patch_kernel(k3)
     torch.cuda.synchronize()
 
@@ -948,8 +1219,8 @@ def main() -> int:
             "library_ms": row.get("library_ms"),
         }
         if one_level is not None:
-            out["one_level"] = {k: one_level[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                          "bound_by")}
+            out["one_level"] = {k: one_level.get(k) for k in ("ms", "plain_ms", "bound_ms",
+                                                              "bound_by", "library_ms")}
         return out
 
     print(f"card for the numbers below: {card}", flush=True)
@@ -958,7 +1229,8 @@ def main() -> int:
               "pilotguru_tpu/vo/fast_pallas.py:140", "8 levels of 720x1280, one launch",
               k1_levels, k1[0]),
         entry("gather_patches", "pilotguru_tpu_torch/csrc/patch_gather.cu",
-              "pilotguru_tpu/vo/patch_pallas.py:256", "720x1280, K=434", k2),
+              "pilotguru_tpu/vo/patch_pallas.py:256", "8 levels of 720x1280, K=2000, one launch",
+              k2_levels, k2),
         entry("gather_blurred_patches", "pilotguru_tpu_torch/csrc/blur_patch_gather.cu",
               "pilotguru_tpu/vo/patch_pallas.py:176",
               "8 levels of 720x1280, K=2000, one launch", k3_levels, k3[0]),

@@ -1,18 +1,23 @@
-"""Time the compile-time variants of K1 (FAST + NMS) and K3 (fused blur +
-patch gather) on one NVIDIA card, each held against its plain version first.
+"""Time the compile-time variants of K1 (FAST + NMS), K2 (patch gather) and
+K3 (fused blur + patch gather) on one NVIDIA card, each held against its
+plain version first.
 
     python3 kernel_variants.py [--reps 30]
 
 The sources under pilotguru_tpu_torch/csrc take their tuning choices as
-macros (PG_FAST_COMPASS, PG_FAST_ROWS, PG_FAST_PROBE; PG_BLUR_RUN_V,
-PG_BLUR_RUN_H, PG_BLUR_THREADS). This script builds one library per variant with nvcc (all
+macros (PG_FAST_COMPASS, PG_FAST_ROWS, PG_FAST_PROBE; PG_PATCH_KEYPOINTS,
+PG_PATCH_THREADS, PG_PATCH_PROBE; PG_BLUR_RUN_V, PG_BLUR_RUN_H,
+PG_BLUR_THREADS). This script builds one library per variant with nvcc (all
 at once), puts it in the place of the default library, checks the wrapper's
 result against the plain PyTorch version (exact equality) and prints the
 device time (CUPTI, as chip_smoke.time_ms) of the one-level call at
 1280x720 and of the all-level call over the 8 pyramid levels of a 720p
 frame: K1 on a uniform-noise image (nearly every pixel passes the compass
-test) and on a rendered ride frame (most pixels are flat); K3 with 434
-keypoints on one level and with the extractor's 2000 over 8 levels. The
+test) and on a rendered ride frame (most pixels are flat); K2 and K3 with
+434 keypoints on one level and with the extractor's 2000 over 8 levels
+(plus 36 near the border and in the corners per level), beside K2's two
+floors: an empty kernel on its grid and, from a probe build, its stores
+and index walk without the loads. The
 first variant of each list is the one the sources default to.
 """
 
@@ -36,6 +41,18 @@ FAST_VARIANTS = [
     {"PG_FAST_COMPASS": 0, "PG_FAST_ROWS": 8, "PG_FAST_PROBE": 1},
     {"PG_FAST_COMPASS": 0, "PG_FAST_ROWS": 8, "PG_FAST_PROBE": 2},
 ]
+PATCH_VARIANTS = [
+    {"PG_PATCH_KEYPOINTS": 4, "PG_PATCH_THREADS": 512},
+    {"PG_PATCH_KEYPOINTS": 4, "PG_PATCH_THREADS": 256},
+    {"PG_PATCH_KEYPOINTS": 8, "PG_PATCH_THREADS": 256},
+    {"PG_PATCH_KEYPOINTS": 1, "PG_PATCH_THREADS": 128},
+    {"PG_PATCH_KEYPOINTS": 2, "PG_PATCH_THREADS": 256},
+    {"PG_PATCH_KEYPOINTS": 4, "PG_PATCH_THREADS": 1024},
+    {"PG_PATCH_KEYPOINTS": 8, "PG_PATCH_THREADS": 512},
+    {"PG_PATCH_KEYPOINTS": 8, "PG_PATCH_THREADS": 1024},
+    # Probe (wrong results, not checked): stores and index walk, no loads.
+    {"PG_PATCH_KEYPOINTS": 4, "PG_PATCH_THREADS": 512, "PG_PATCH_PROBE": 1},
+]
 BLUR_VARIANTS = [
     {"PG_BLUR_RUN_V": 20, "PG_BLUR_RUN_H": 13, "PG_BLUR_THREADS": 128},
     {"PG_BLUR_RUN_V": 10, "PG_BLUR_RUN_H": 7, "PG_BLUR_THREADS": 256},
@@ -48,7 +65,8 @@ def build_variants(cuda_lib):
     """{(source stem, index): library path}, one nvcc process per variant."""
     cuda_lib.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for stem, variants in (("fast_nms", FAST_VARIANTS), ("blur_patch_gather", BLUR_VARIANTS)):
+    for stem, variants in (("fast_nms", FAST_VARIANTS), ("patch_gather", PATCH_VARIANTS),
+                           ("blur_patch_gather", BLUR_VARIANTS)):
         for i, defines in enumerate(variants):
             target = cuda_lib.BUILD_DIR / f"libpg_{stem}-variant{i}.so"
             cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS,
@@ -131,6 +149,32 @@ def main() -> int:
     yx = [torch.from_numpy(chip_smoke._keypoints_720p(rng, h, w, k)).cuda()
           for (h, w), k in zip(chip_smoke.LEVEL_SHAPES_720P, budgets)]
     yx434 = yx[0][:434].contiguous()
+    blurred = [features.gaussian_blur(image) for image in noise]
+    for name, keypoints in (("K=434", [yx434]), (f"K={sum(t.shape[0] for t in yx)}", yx)):
+        blocks = -(-sum(t.shape[0] for t in keypoints) // 4)
+        empty_ms = chip_smoke.time_ms(lambda: cuda_lib.check_launch(
+            "floor_empty", floors.pg_floor_empty(blocks, 512, cuda_lib.current_stream(
+                noise[0].device))), args.reps)[0]
+        print(f"K2 floor, {name}: an empty kernel on the grid of 4 keypoints a block "
+              f"({blocks} blocks of 512) {empty_ms:.4f} ms", flush=True)
+    for i, defines in enumerate(PATCH_VARIANTS):
+        use_variant(cuda_lib, default_paths, "patch_gather", paths[("patch_gather", i)])
+        got = patch_kernel.gather_patches_levels(blurred, yx)
+        for patches, image, level_yx in zip(got, blurred, yx):
+            want = patch_kernel.gather_patches_plain(image, level_yx)
+            if "PG_PATCH_PROBE" in defines:
+                continue
+            if not (torch.equal(patches, want) and torch.equal(
+                    patch_kernel.gather_patches(image, level_yx), want)):
+                raise AssertionError(f"K2 variant {defines} differs from plain at "
+                                     f"{tuple(image.shape)}")
+        one = chip_smoke.time_ms(
+            lambda: patch_kernel.gather_patches(blurred[0], yx434), args.reps)[0]
+        every = chip_smoke.time_ms(
+            lambda: patch_kernel.gather_patches_levels(blurred, yx), args.reps)[0]
+        print(f"K2 {defines}: {'probe' if 'PG_PATCH_PROBE' in defines else 'exact'}; device "
+              f"ms 720p K=434 {one:.4f}, 8 levels K={sum(t.shape[0] for t in yx)} "
+              f"{every:.4f}", flush=True)
     for i, defines in enumerate(BLUR_VARIANTS):
         use_variant(cuda_lib, default_paths, "blur_patch_gather",
                     paths[("blur_patch_gather", i)])

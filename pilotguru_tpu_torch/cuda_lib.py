@@ -51,6 +51,17 @@ class FastLevels(ctypes.Structure):
     ]
 
 
+class PatchLevels(ctypes.Structure):
+    """PgPatchLevels of csrc/patch_gather.cu: the images of one launch and
+    each one's keypoints."""
+
+    _fields_ = [
+        ("img", _VOIDP * MAX_LEVELS), ("yx", _VOIDP * MAX_LEVELS),
+        ("h", _INT * MAX_LEVELS), ("w", _INT * MAX_LEVELS),
+        ("num_keypoints", _INT * MAX_LEVELS), ("count", _INT),
+    ]
+
+
 class BlurLevels(ctypes.Structure):
     """PgBlurLevels of csrc/blur_patch_gather.cu: the images of one launch
     and how many of the keypoints each holds."""
@@ -67,8 +78,8 @@ _FLOATP = ctypes.POINTER(ctypes.c_float)
 _SIGNATURES = {
     # levels, threshold, stream
     "pg_fast_nms_levels": ([ctypes.POINTER(FastLevels), ctypes.c_float, _VOIDP], _INT),
-    # img, yx, out, h, w, k, radius, stream
-    "pg_gather_patches": ([_VOIDP, _VOIDP, _VOIDP, _INT, _INT, _INT, _INT, _VOIDP], _INT),
+    # levels, out, radius, stream
+    "pg_gather_patches_levels": ([ctypes.POINTER(PatchLevels), _VOIDP, _INT, _VOIDP], _INT),
     # levels, yx, taps (host), out, radius, blur radius, stream
     "pg_blur_patch_gather_levels": (
         [ctypes.POINTER(BlurLevels), _VOIDP, _FLOATP, _VOIDP, _INT, _INT, _VOIDP], _INT

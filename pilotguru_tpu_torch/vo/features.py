@@ -7,11 +7,11 @@ of all levels in one launch (kernel K1, vo/fast_kernel.py); per level,
 best-per-cell then global top-N selection and parabola sub-pixel
 refinement; one Gaussian-blurred 39x39 patch per keypoint; per level,
 intensity-centroid orientation and steered BRIEF from those patches. The
-blurred patches come from a 17-tap blur of each whole level and a gather
-(kernel K2, vo/patch_kernel.py; ``patch_impl="blur_then_gather"``, the
-default), or from one fused blur + gather over all levels in one launch
-(kernel K3, the same module; ``patch_impl="fused"``, the reference's
-``PGTPU_PATCH_IMPL=fused``).
+blurred patches come from a 17-tap blur of each whole level and one
+gather over all levels in one launch (kernel K2, vo/patch_kernel.py;
+``patch_impl="blur_then_gather"``, the default), or from one fused blur +
+gather over all levels in one launch (kernel K3, the same module;
+``patch_impl="fused"``, the reference's ``PGTPU_PATCH_IMPL=fused``).
 
 The constant tables (FAST_CIRCLE, BRIEF_PATTERN, the BRIEF steering-bin
 matrix, the orientation moment weights) are built by the reference's numpy
@@ -38,7 +38,7 @@ from pilotguru_tpu_torch.vo.patch_kernel import (
     BLUR_SIGMA,
     PATCH_GATHER_RADIUS,
     gather_blurred_patches_levels,
-    gather_patches,
+    gather_patches_levels,
     gaussian_kernel,
 )
 
@@ -360,7 +360,7 @@ def extract_orb_features(
     h, w = image.shape
     shapes = level_shapes(h, w, num_levels, scale)
     level_imgs = [image] + [resize_linear(image, lh, lw) for lh, lw in shapes[1:]]
-    # One launch of K1 (and of K3 below) takes MAX_LEVELS levels; a deeper
+    # One launch of K1 (and of K2 or K3 below) takes MAX_LEVELS levels; a deeper
     # pyramid goes in several.
     chunks = [slice(i, i + MAX_LEVELS) for i in range(0, num_levels, MAX_LEVELS)]
     responses = [
@@ -372,17 +372,16 @@ def extract_orb_features(
     ]
     yx_per_level = [yx for yx, _, _ in selected]
     # One blurred patch per keypoint feeds both the orientation moments and
-    # BRIEF, as in the reference.
+    # BRIEF, as in the reference. The default path blurs every level first
+    # (plain PyTorch, as the reference blurs outside any Pallas kernel).
     if patch_impl == "fused":
-        patches_per_level = [
-            patches for chunk in chunks
-            for patches in gather_blurred_patches_levels(level_imgs[chunk], yx_per_level[chunk])
-        ]
+        sources, gather = level_imgs, gather_blurred_patches_levels
     else:
-        patches_per_level = [
-            gather_patches(gaussian_blur(level_img), yx)
-            for level_img, yx in zip(level_imgs, yx_per_level)
-        ]
+        sources, gather = [gaussian_blur(img) for img in level_imgs], gather_patches_levels
+    patches_per_level = [
+        patches for chunk in chunks
+        for patches in gather(sources[chunk], yx_per_level[chunk])
+    ]
     parts = {name: [] for name in Keypoints._fields}
     for level, ((yx, resp, valid), patches) in enumerate(zip(selected, patches_per_level)):
         offsets = subpixel_offsets(responses[level][0], yx)

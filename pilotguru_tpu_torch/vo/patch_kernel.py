@@ -4,9 +4,10 @@ the Gaussian blur).
 Ports of pilotguru_tpu/vo/patch_pallas.py::gather_patches_pallas (and of the
 plain ``extract_patches`` of pilotguru_tpu/vo/features.py) and of
 ``gather_blurred_patches_pallas``. ``gather_patches``,
-``gather_blurred_patches`` and ``gather_blurred_patches_levels`` (every level
-of a pyramid in one launch) dispatch on the image's device: a CPU tensor runs
-the plain version; a CUDA tensor launches the hand-written kernel
+``gather_patches_levels``, ``gather_blurred_patches`` and
+``gather_blurred_patches_levels`` (the ``_levels`` entries: every level of a
+pyramid in one launch) dispatch on the image's device: a CPU tensor runs the
+plain version; a CUDA tensor launches the hand-written kernel
 (csrc/patch_gather.cu, csrc/blur_patch_gather.cu) or raises.
 """
 
@@ -76,25 +77,59 @@ def gather_patches(
     """Patch gather: image [H, W] float32, yx [K, 2] int32 -> [K, S, S]."""
     if image.device.type == "cpu":
         return gather_patches_plain(image, yx, radius)
-    if image.device.type != "cuda":
-        raise ValueError(f"gather_patches: unsupported device {image.device}")
-    _check_image_and_yx("gather_patches", image, yx)
-    if radius < 0:
-        raise ValueError(f"gather_patches: radius must be >= 0, got {radius}")
-    h, w = image.shape
-    k = yx.shape[0]
+    return gather_patches_levels([image], [yx], radius)[0]
+
+
+def _check_levels(name, images, yx_per_level):
+    """Validate the arguments of an all-level entry; returns the device."""
+    if not 1 <= len(images) <= cuda_lib.MAX_LEVELS or len(images) != len(yx_per_level):
+        raise ValueError(
+            f"{name}: want 1 to {cuda_lib.MAX_LEVELS} images and as many keypoint sets, "
+            f"got {len(images)} and {len(yx_per_level)}"
+        )
+    device = images[0].device
+    for image, yx in zip(images, yx_per_level):
+        if image.device != device:
+            raise ValueError(f"{name}: images on different devices ({device}, {image.device})")
+        _check_image_and_yx(name, image, yx)
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+    return device
+
+
+def gather_patches_levels(
+    images: Sequence[torch.Tensor], yx_per_level: Sequence[torch.Tensor],
+    radius: int = PATCH_GATHER_RADIUS,
+) -> List[torch.Tensor]:
+    """``gather_patches`` of every level of a pyramid: images[l] [H_l, W_l]
+    float32 and yx_per_level[l] [K_l, 2] int32 -> a list of [K_l, S, S]
+    patches. On CUDA one launch covers all levels (at most
+    ``cuda_lib.MAX_LEVELS``), reading each level's keypoints where they lie,
+    and the outputs are views of one allocation; the kernel is built for
+    radius PATCH_GATHER_RADIUS only."""
+    name = "gather_patches_levels"
+    images, yx_per_level = list(images), list(yx_per_level)
+    device = _check_levels(name, images, yx_per_level)
+    if device.type == "cpu":
+        return [gather_patches_plain(image, yx, radius)
+                for image, yx in zip(images, yx_per_level)]
+    if radius != PATCH_GATHER_RADIUS:
+        raise ValueError(f"{name}: the kernel is built for radius {PATCH_GATHER_RADIUS}, "
+                         f"got radius {radius}")
+    table = cuda_lib.PatchLevels(count=len(images))
+    for level, (image, yx) in enumerate(zip(images, yx_per_level)):
+        table.img[level], table.yx[level] = image.data_ptr(), yx.data_ptr()
+        table.h[level], table.w[level] = image.shape
+        table.num_keypoints[level] = yx.shape[0]
+    counts = [yx.shape[0] for yx in yx_per_level]
     size = 2 * radius + 1
-    out = torch.empty((k, size, size), dtype=image.dtype, device=image.device)
-    if k == 0:
-        return out
-    lib = cuda_lib.library()
-    err = lib.pg_gather_patches(
-        image.data_ptr(), yx.data_ptr(), out.data_ptr(), h, w, k, radius,
-        cuda_lib.current_stream(image.device),
-    )
-    COUNTER.launches += 1
-    cuda_lib.check_launch("gather_patches", err)
-    return out
+    out = torch.empty((sum(counts), size, size), dtype=torch.float32, device=device)
+    if sum(counts) > 0:
+        err = cuda_lib.library().pg_gather_patches_levels(
+            ctypes.byref(table), out.data_ptr(), radius, cuda_lib.current_stream(device))
+        COUNTER.launches += 1
+        cuda_lib.check_launch(name, err)
+    return list(out.split(counts))
 
 
 def _reflect_edge_index(p: torch.Tensor, n: int, radius: int, blur_radius: int):
@@ -177,21 +212,10 @@ def gather_blurred_patches_levels(
     ``cuda_lib.MAX_LEVELS``), and the outputs are views of one allocation."""
     name = "gather_blurred_patches_levels"
     images, yx_per_level = list(images), list(yx_per_level)
-    if not 1 <= len(images) <= cuda_lib.MAX_LEVELS or len(images) != len(yx_per_level):
-        raise ValueError(
-            f"{name}: want 1 to {cuda_lib.MAX_LEVELS} images and as many keypoint sets, "
-            f"got {len(images)} and {len(yx_per_level)}"
-        )
-    device = images[0].device
-    for image, yx in zip(images, yx_per_level):
-        if image.device != device:
-            raise ValueError(f"{name}: images on different devices ({device}, {image.device})")
-        _check_image_and_yx(name, image, yx)
+    device = _check_levels(name, images, yx_per_level)
     if device.type == "cpu":
         return [gather_blurred_patches_plain(image, yx, radius, sigma)
                 for image, yx in zip(images, yx_per_level)]
-    if device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {device}")
     table = cuda_lib.BlurLevels(count=len(images))
     for level, (image, yx) in enumerate(zip(images, yx_per_level)):
         taps, br = _check_blur_shape(name, image, radius, sigma)

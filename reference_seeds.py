@@ -1,0 +1,71 @@
+"""The JAX package's per-frame tracker over the start of chip_smoke's
+parallax ride, once per RANSAC key, on the CPU.
+
+    python3 reference_seeds.py [--frames 20] [--keys 0 1 2 3 4] [--float32]
+
+Renders the first ``--frames`` frames of chip_smoke.render_ride (1280x720,
+2000 features / 8 levels, fx 700), builds the reference's tracker as its
+optical_trajectories CLI does on the CPU (float64, or with ``--float32``
+as it does off the CPU; per-frame tracking: ``track_chunk_frames=0``),
+sets the tracker's RANSAC key to ``jax.random.PRNGKey(key)`` from outside
+and feeds the frames one by one.
+Prints one JSON line per key: the state after every frame and the first
+frame that is LOST (null if none). This is the reference's side of the
+question whether losing track at some RANSAC seed is a property of the
+tracker or a fault of the port (ride_seeds.py is the port's side, on the
+card).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import sys
+import time
+
+import jax
+
+jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_enable_x64", "--float32" not in sys.argv)
+
+import chip_smoke  # noqa: E402
+from pilotguru_tpu.vo import pipeline, tracking  # noqa: E402
+from pilotguru_tpu.vo.camera import CameraSettings  # noqa: E402
+
+
+def run_key(frames_u8, key):
+    settings = CameraSettings(fx=chip_smoke.RIDE_FX, fy=chip_smoke.RIDE_FX,
+                              cx=chip_smoke.RIDE_W / 2.0, cy=chip_smoke.RIDE_H / 2.0,
+                              orb_features=2000, orb_levels=8)
+    base = pipeline.tracker_from_settings(settings)
+    tracker = tracking.MonocularTracker(
+        base.camera, dataclasses.replace(base.config, track_chunk_frames=0))
+    tracker._rng = jax.random.PRNGKey(key)
+    states = []
+    start = time.perf_counter()
+    for i, gray in enumerate(frames_u8):
+        states.append(tracker.process_frame(pipeline.gray_as_float(gray), i,
+                                            int(round(i * 1e6 / 30.0))))
+    lost = [i for i, s in enumerate(states) if s == tracking.LOST]
+    return {"key": key, "frames": len(states), "first_lost": lost[0] if lost else None,
+            "ok_frames": states.count(tracking.OK), "keyframes": len(tracker.keyframes),
+            "states": states, "seconds": time.perf_counter() - start}
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--frames", type=int, default=20)
+    parser.add_argument("--keys", type=int, nargs="+", default=[0, 1, 2, 3, 4])
+    parser.add_argument("--float32", action="store_true",
+                        help="x64 off: the tracker computes in float32")
+    args = parser.parse_args(argv)
+    frames = list(chip_smoke.render_ride(frames=args.frames))
+    for key in args.keys:
+        print(json.dumps({"ride": "parallax", "x64": jax.config.jax_enable_x64,
+                          **run_key(frames, key)}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -24,6 +24,7 @@ from pilotguru_tpu_torch.vo.patch_kernel import (
     gather_blurred_patches_levels,
     gather_blurred_patches_plain,
     gather_patches,
+    gather_patches_levels,
     gather_patches_plain,
 )
 
@@ -79,6 +80,45 @@ def test_patch_kernel_matches_plain(cuda):
     yx = np.stack([rng.integers(-3, 723, 434), rng.integers(-3, 1283, 434)], axis=1)
     yx = torch.from_numpy(yx.astype(np.int32)).to(cuda)
     assert torch.equal(gather_patches(img, yx), gather_patches_plain(img, yx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_levels", [1, 3, 8])
+def test_patch_levels_kernel_matches_plain(cuda, num_levels):
+    """K2's one launch over the pyramid at the extractor's per-level budgets,
+    plus keypoints within 19 px of each border, the four corners, starts
+    outside the image (negative ones clamp to 0) and one level without any,
+    equals the plain version level by level, bit for bit."""
+    rng = np.random.default_rng(10)
+    images = _pyramid(cuda, 5, num_levels)
+    budgets = pyramid_level_budgets(2000, 8, 1.2)[:num_levels]
+    yx = []
+    for img, k in zip(images, budgets):
+        h, w = img.shape
+        pts = np.concatenate([
+            np.stack([rng.integers(0, h, k), rng.integers(0, w, k)], axis=1),
+            np.stack([rng.integers(0, 19, 8), rng.integers(0, w, 8)], axis=1),
+            np.stack([rng.integers(h - 19, h, 8), rng.integers(w - 19, w, 8)], axis=1),
+            np.array([[0, 0], [0, w - 1], [h - 1, 0], [h - 1, w - 1], [-5, -7], [h + 3, w]]),
+        ])
+        yx.append(torch.from_numpy(pts.astype(np.int32)).to(cuda))
+    if num_levels > 1:
+        yx[1] = yx[1][:0]
+    patch_kernel.COUNTER.reset()
+    got = gather_patches_levels(images, yx)
+    torch.cuda.synchronize()
+    assert patch_kernel.COUNTER.launches == 1
+    for patches, img, level_yx in zip(got, images, yx):
+        assert torch.equal(patches, gather_patches_plain(img, level_yx))
+
+
+@pytest.mark.cuda
+def test_patch_kernel_refuses_other_radii(cuda):
+    """K2 is compiled for radius 19; the wrapper raises for anything else."""
+    img = torch.zeros((64, 64), device=cuda)
+    yx = torch.zeros((2, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="built for radius 19"):
+        gather_patches(img, yx, radius=5)
 
 
 @pytest.mark.cuda

@@ -33,6 +33,11 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_cv2():
     mods = _port_modules()
     assert "pilotguru_tpu_torch.vo.tracking" in mods and len(mods) >= 30
+    assert {"pilotguru_tpu_torch.calib.fit_motion", "pilotguru_tpu_torch.calib.accelerometer",
+            "pilotguru_tpu_torch.calib.pieces", "pilotguru_tpu_torch.calib.rotation_axis",
+            "pilotguru_tpu_torch.geometry.strapdown", "pilotguru_tpu_torch.timeseries.merge",
+            "pilotguru_tpu_torch.utils.profiling", "pilotguru_tpu_torch.utils.strings",
+            "pilotguru_tpu_torch.cli.fit_motion"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -62,3 +62,40 @@ def test_cpu_dispatch_runs_plain_version_without_launching():
     assert patch_kernel.COUNTER.launches == 0
     assert patch_kernel.COUNTER.plain_cuda_calls == 0
 
+
+
+@pytest.mark.parametrize("num_levels", [1, 3, 8])
+def test_levels_cpu_dispatch_runs_plain_per_level_without_launching(num_levels):
+    """gather_patches_levels on CPU tensors is the plain version level by
+    level (each equal to the reference's extract_patches), with no launch;
+    a level without keypoints gives an empty [0, 39, 39]."""
+    rng = np.random.default_rng(6)
+    shapes = [(60 - 5 * level, 90 - 8 * level) for level in range(num_levels)]
+    images = [rng.uniform(0, 1, size=s).astype(np.float32) for s in shapes]
+    yx = [np.concatenate([
+        np.stack([rng.integers(0, h, 9), rng.integers(0, w, 9)], axis=1),
+        np.array([[0, 0], [h - 1, w - 1]]),
+    ]).astype(np.int32) for h, w in shapes]
+    if num_levels > 1:
+        yx[1] = yx[1][:0]
+    patch_kernel.COUNTER.reset()
+    got = patch_kernel.gather_patches_levels(
+        [torch.from_numpy(i) for i in images], [torch.from_numpy(p) for p in yx])
+    assert patch_kernel.COUNTER.launches == 0
+    assert patch_kernel.COUNTER.plain_cuda_calls == 0
+    assert len(got) == num_levels
+    for patches, img, level_yx in zip(got, images, yx):
+        assert patches.shape == (level_yx.shape[0], 39, 39)
+        want = np.asarray(extract_patches(jnp.asarray(img), jnp.asarray(level_yx)))
+        np.testing.assert_array_equal(patches.numpy(), want.reshape(patches.shape))
+
+
+def test_levels_refuse_bad_arguments():
+    img = torch.zeros((20, 30))
+    yx = torch.zeros((2, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="want 1 to 8 images"):
+        patch_kernel.gather_patches_levels([img] * 9, [yx] * 9)
+    with pytest.raises(ValueError, match="as many keypoint sets"):
+        patch_kernel.gather_patches_levels([img, img], [yx])
+    with pytest.raises(ValueError, match="int32"):
+        patch_kernel.gather_patches_levels([img], [yx.long()])
