@@ -15,8 +15,8 @@ converges in a few iterations.
 Every function takes windows along the leading dimensions: pieces [W, P]
 (one window: W absent), padded pieces carry dt = rate = acc = 0 and
 contribute exactly nothing. The reference's ``jax.ops.segment_sum`` over
-GPS intervals is a scatter-add (``index_put_`` with ``accumulate=True``),
-which sums in a fixed order, so runs on the card repeat bit for bit.
+GPS intervals is a scatter-add in a fixed order (utils/segments.py), so
+runs repeat bit for bit on the card and on the CPU.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from pilotguru_tpu_torch.solvers.levenberg_marquardt import (
     LMResult,
     batched_levenberg_marquardt,
 )
+from pilotguru_tpu_torch.utils.segments import accumulate_rows
 
 NUM_PARAMS = 9  # [global_bias(3), local_bias(3), initial_velocity(3)]
 
@@ -48,7 +49,7 @@ def segment_sum(values, segment_ids, num_segments: int):
     rows = segment_ids.reshape(-1, p).long()
     rows = rows + num_segments * torch.arange(rows.shape[0], device=rows.device)[:, None]
     out = values.new_zeros((rows.shape[0] * num_segments,) + feat)
-    out.index_put_((rows.reshape(-1),), values.reshape((-1,) + feat), accumulate=True)
+    accumulate_rows(out, rows.reshape(-1), values.reshape((-1,) + feat))
     return out.reshape(lead + (num_segments,) + feat)
 
 

@@ -178,7 +178,7 @@ def fit_motion_arrays(
     with timer.stage("rotation_axis_pca"):
         axes, _ = principal_rotation_axes(
             rot_times_usec, rot_rates,
-            config.principal_rotation_axis_integration_interval_usec, dtype, device,
+            config.principal_rotation_axis_integration_interval_usec, dtype, device=device,
         )
         vertical = axes[0]
         steering = angular_velocities_around_axis(put(rot_rates), vertical).cpu().numpy()

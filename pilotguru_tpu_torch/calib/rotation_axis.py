@@ -42,7 +42,7 @@ def chunk_boundaries(times_usec: np.ndarray, interval_usec: int) -> np.ndarray:
 
 
 def integrate_rotation_chunks(times_usec, rot_rates, interval_usec: int,
-                              dtype=torch.float64, device="cpu"):
+                              dtype=torch.float64, *, device):
     """Per-chunk integrated quaternions [C, 4] on ``device``: each chunk's
     ordered product of per-step delta quaternions."""
     times = np.asarray(times_usec, np.int64)
@@ -74,11 +74,12 @@ def _chunk_quats(step_rates, step_dt):
 
 
 def principal_rotation_axes(times_usec, rot_rates, interval_usec: int = 500_000,
-                            dtype=torch.float64, device="cpu"):
+                            dtype=torch.float64, *, device):
     """PCA eigenvectors (rows, descending eigenvalue) of the chunk quaternions'
     (x, y, z), and the eigenvalues. Each axis's sign makes its
     largest-magnitude component positive; row 0 is the inferred vertical."""
-    quats = integrate_rotation_chunks(times_usec, rot_rates, interval_usec, dtype, device)
+    quats = integrate_rotation_chunks(times_usec, rot_rates, interval_usec, dtype,
+                                      device=device)
     return _masked_pca(quats, torch.ones(quats.shape[0], dtype=torch.bool, device=device))
 
 

@@ -18,9 +18,13 @@ def read_json(filename: str) -> dict:
         return json.load(f)
 
 
+def dumps(data: dict) -> str:
+    return json.dumps(data, indent=2, sort_keys=True, allow_nan=True)
+
+
 def write_json(data: dict, filename: str) -> None:
     with open(filename, "w") as f:
-        f.write(json.dumps(data, indent=2, sort_keys=True, allow_nan=True))
+        f.write(dumps(data))
         f.write("\n")
 
 
@@ -46,6 +50,16 @@ def read_gps_velocities(filename: str):
     return times, speeds
 
 
+def read_timestamped_values(filename: str, root_element: str, value_name: str):
+    """Read a scalar series {root: [{time_usec, <value_name>}, ...]} into
+    (times_usec int64 [N], values float64 [N]) (the reference's
+    RealTimeSeries JSON ingestion)."""
+    entries = read_json(filename)[root_element]
+    times = np.asarray([e[keys.TIME_USEC] for e in entries], dtype=np.int64)
+    values = np.asarray([e[value_name] for e in entries], dtype=np.float64)
+    return times, values
+
+
 def write_timestamped_values(times_usec: Sequence[int], values: Sequence[float],
                              filename: str, root_element: str, value_name: str) -> None:
     """Write {root: [{time_usec, <value_name>}, ...]}."""
@@ -58,8 +72,23 @@ def write_timestamped_values(times_usec: Sequence[int], values: Sequence[float],
     write_json({root_element: events}, filename)
 
 
+def read_frames(filename: str):
+    """Read the recorder's frames.json ({frames: [{frame_id, time_usec}]})
+    into (frame_ids int64 [F], times_usec int64 [F])."""
+    frames = read_json(filename)[keys.FRAMES]
+    ids = np.asarray([e[keys.FRAME_ID] for e in frames], dtype=np.int64)
+    times = np.asarray([e[keys.TIME_USEC] for e in frames], dtype=np.int64)
+    return ids, times
+
+
 def write_forward_axis(axis, filename: str) -> None:
     """Write {"forward_axis": {x, y, z}}."""
     axis = np.asarray(axis, dtype=np.float64)
     write_json({keys.FORWARD_AXIS: {keys.X: float(axis[0]), keys.Y: float(axis[1]),
                                     keys.Z: float(axis[2])}}, filename)
+
+
+def read_forward_axis(filename: str) -> np.ndarray:
+    """Read {"forward_axis": {x, y, z}} into a float64 [3] array."""
+    ax = read_json(filename)[keys.FORWARD_AXIS]
+    return np.asarray([ax[keys.X], ax[keys.Y], ax[keys.Z]], dtype=np.float64)

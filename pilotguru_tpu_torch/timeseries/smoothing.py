@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from pilotguru_tpu_torch.utils.fma import fma
 
 
 def _band_bounds(timestamps: np.ndarray, targets: np.ndarray, sigma: float):
@@ -33,7 +34,7 @@ def _band_bounds(timestamps: np.ndarray, targets: np.ndarray, sigma: float):
 
 
 def smooth_time_series(values, timestamps, target_timestamps, sigma: float,
-                       dtype=torch.float64, device="cpu"):
+                       dtype=torch.float64, *, device):
     """Gaussian smoothing of a (possibly vector-valued) time series.
 
     values [N] or [N, D]; timestamps [N] and target_timestamps [T] sorted,
@@ -79,22 +80,35 @@ def _smooth_banded(vals, ts, targets, left, right, band: int, sigma: float):
     return torch.einsum("tb,tbd->td", weights, g_vals)
 
 
-def smooth_quaternion_sequence(quats, sigma: int, dtype=torch.float64):
+def smooth_quaternion_sequence(quats, sigma: int, dtype=torch.float64, *, device):
     """Per-component Gaussian filtering of a quaternion sequence + renorm.
 
     Matches SmoothHeadingDirections (reference src/slam/smoothing.cc:8-46):
     a discrete Gaussian kernel of size 4*sigma+1 applied per component with
     replicate border handling, then per-element renormalization. sigma is in
-    samples. quats: [N, 4] array or tensor; returns a [N, 4] tensor."""
+    samples. quats: [N, 4] array or tensor; returns a [N, 4] tensor on
+    ``device``, computed there in ``dtype``."""
     if sigma <= 0:
         raise ValueError("sigma must be positive")
-    q = torch.as_tensor(np.asarray(quats), dtype=dtype)
+    q = torch.as_tensor(np.asarray(quats), dtype=dtype, device=device)
     ksize = 4 * int(sigma) + 1
     half = ksize // 2
     x = np.arange(ksize, dtype=np.float64) - half
     kernel = np.exp(-(x**2) / (2.0 * float(sigma) ** 2))
-    kernel = torch.as_tensor(kernel / kernel.sum(), dtype=dtype)
+    kernel = torch.as_tensor(kernel / kernel.sum(), dtype=dtype, device=device)
     padded = torch.cat([q[:1].expand(half, 4), q, q[-1:].expand(half, 4)])
-    # The kernel is symmetric, so correlation equals convolution.
-    smoothed = F.conv1d(padded.T[:, None, :], kernel[None, None, :])[:, 0, :].T
-    return smoothed / torch.linalg.vector_norm(smoothed, dim=1, keepdim=True)
+    # The kernel is symmetric, so correlation equals convolution. The taps
+    # accumulate in order, one fused multiply-add each, and the norm sums
+    # the squares left to right with fused multiply-adds: the order and
+    # rounding of XLA's CPU convolution and reduction (the JAX package's),
+    # so the result matches the reference's to the bit.
+    n = q.shape[0]
+    smoothed = torch.zeros_like(q)
+    for t in range(ksize):
+        smoothed = fma(kernel[t], padded[t:t + n], smoothed)
+    cols = smoothed.T
+    sum_sq = cols[0] * cols[0]
+    for k in range(1, 4):
+        sum_sq = fma(cols[k], cols[k], sum_sq)
+    norm = torch.sqrt(sum_sq)
+    return smoothed / norm[:, None]

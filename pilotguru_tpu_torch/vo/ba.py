@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
+from pilotguru_tpu_torch.utils.segments import accumulate_rows
 from pilotguru_tpu_torch.vo.pose import (
     huber_weights,
     inv3x3,
@@ -141,11 +142,10 @@ def _schur_lm(
         return (res * res).sum() + (pr * pr).sum()
 
     def segment_sum(values, index, segments):
-        # index_put_ with accumulate sums each segment in a fixed order on
-        # CUDA (index_add_ uses atomics there), so a BA, and with it a
-        # whole ride, gives the same float32 result run after run.
+        # A fixed summation order, so a BA, and with it a whole ride, gives
+        # the same float32 result run after run.
         out = torch.zeros((segments,) + values.shape[1:], dtype=dtype, device=device)
-        return out.index_put_((index,), values, accumulate=True)
+        return accumulate_rows(out, index, values)
 
     poses, points = problem.poses6, problem.points
     damping = torch.full((), init_damping, dtype=dtype, device=device)

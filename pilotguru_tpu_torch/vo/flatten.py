@@ -44,6 +44,15 @@ def project_directions(rotations, plane) -> np.ndarray:
     return (dirs @ torch.as_tensor(np.asarray(plane, np.float64)).T).numpy()
 
 
+def project_translations(translations, plane) -> np.ndarray:
+    """Translations flattened into the plane and expressed back in 3-D:
+    t' = (P t)^T P, P the 2x3 plane (ProjectTranslations,
+    horizontal_flatten.cc:31-42). Host float64."""
+    t = np.asarray(translations, np.float64)
+    p = np.asarray(plane, np.float64)
+    return (t @ p.T) @ p
+
+
 def turn_angles_from_directions(directions) -> np.ndarray:
     """Signed angles between consecutive 2-D directions
     (Projected2DDirectionsToTurnAngles, horizontal_flatten.cc:44-64):

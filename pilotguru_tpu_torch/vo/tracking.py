@@ -551,7 +551,7 @@ class MonocularTracker:
         self,
         camera: CameraModel,
         config: TrackerConfig = TrackerConfig(),
-        device="cpu",
+        device="cuda",
         dtype: Optional[torch.dtype] = None,
     ):
         self.camera = camera

@@ -2,6 +2,8 @@
 
     python3 ride_seeds.py --ride loop --seeds 0 1 2 3 4 [--loop-closing off]
         [--frames N] [--device cuda|cpu] [--dtype float32|float64]
+        [--log PATH] [--swap NAME@cpu|NAME@float64 ...] [--probe-svd]
+        [--nudge N ...]
 
 Renders chip_smoke's parallax ride or loop ride at 1280x720, runs
 optical_trajectories' segment loop on CUDA at 2000 features / 8 levels
@@ -17,27 +19,256 @@ plain versions of the kernels on the CPU (a check of the tracker's
 decisions, not a measurement), in float64 unless ``--dtype`` says
 otherwise (the card runs float32): reference_seeds.py runs the JAX
 package's tracker over the same frames.
+
+``--log PATH`` appends, for every run, one JSON line per frame of the
+first segment to PATH: the tracker's state, each tracking attempt's
+projected matches, pose inliers and pose (6 numbers), the pose kept, the
+keyframes, and at the two-view initialization the model chosen
+(homography or essential) with its inlier count. Logs of the same draws
+on several devices and dtypes show the first frame where the runs part.
+
+``--probe-svd`` measures every torch.linalg.svd call of a run without
+changing it: per calling function, the worst error of its singular values
+(relative to the largest) and of its last right singular vector (its
+angle, radians) against float64 on the CPU, beside the same errors of the CPU's
+SVD in the run's dtype on the same inputs.
+
+``--swap`` reruns each seed with one stage of the tracker (``twoview``,
+``track``, ``refkf``, ``create``, ``fuse``, ``ba``) or one operation
+(``svd``: torch.linalg.svd, ``solve``: torch.linalg.solve_ex) computed on
+the CPU in the run's dtype (``@cpu``) or on the run's device in float64
+(``@float64``), its results moved back; ``none`` is the run as it stands.
+The swaps live in this script: the package has no such switch.
+
+``--nudge N ...`` reruns each seed once per N with every keypoint
+coordinate the tracker receives moved by one float32 ulp, up or down at
+random (numpy generator N): whether a run keeps track across such nudges
+tells a decision that sits on a rounding-level tie from a fault.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import itertools
 import json
 import os
 import shutil
+import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 import chip_smoke
 from pilotguru_tpu_torch.formats.trajectory import read_trajectory
-from pilotguru_tpu_torch.vo import pipeline
+from pilotguru_tpu_torch.vo import pipeline, tracking, twoview
+
+STAGES = {
+    "twoview": "two_view_reconstruction",
+    "track": "fused_track_step",
+    "refkf": "fused_ref_kf_track",
+    "create": "create_points",
+    "fuse": "fused_project_match",
+    "ba": "bundle_adjust",
+}
+OPS = {"svd": "svd", "solve": "solve_ex"}
+
+
+def _moved(obj, device, dtype=None):
+    """Tensors in ``obj`` (nested tuples / NamedTuples) on ``device``, the
+    floating ones in ``dtype`` when given."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device=device, dtype=dtype if dtype and obj.is_floating_point() else None)
+    if isinstance(obj, tuple):
+        items = [_moved(o, device, dtype) for o in obj]
+        return type(obj)(*items) if hasattr(obj, "_fields") else tuple(items)
+    if isinstance(obj, list):
+        return [_moved(o, device, dtype) for o in obj]
+    return obj
+
+
+def _first_tensor(args):
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a
+        if isinstance(a, tuple):
+            t = _first_tensor(a)
+            if t is not None:
+                return t
+    return None
+
+
+def _swapped_fn(fn, where):
+    """``fn`` computed on the CPU (``where == "cpu"``) or in float64 on its
+    inputs' device, its outputs back on that device in the input dtype."""
+
+    def wrapper(*args, **kwargs):
+        ref = _first_tensor(args)
+        if ref is None or (where == "cpu" and ref.device.type == "cpu"):
+            return fn(*args, **kwargs)
+        device, dtype = ref.device, ref.dtype
+        if where == "cpu":
+            out = fn(*_moved(args, "cpu"), **{k: _moved(v, "cpu") for k, v in kwargs.items()})
+        else:
+            out = fn(*_moved(args, device, torch.float64), **kwargs)
+        return _moved(out, device, dtype if dtype.is_floating_point else None)
+
+    return wrapper
+
+
+@contextlib.contextmanager
+def swapped(spec: str):
+    """The swap ``spec`` ("none", "svd@cpu", "ba@float64", ...) in force."""
+    if spec == "none":
+        yield
+        return
+    name, where = spec.split("@")
+    if where not in ("cpu", "float64"):
+        raise ValueError(f"--swap {spec}: want NAME@cpu or NAME@float64")
+    if name in STAGES:
+        owner, attr = tracking, STAGES[name]
+    elif name in OPS:
+        owner, attr = torch.linalg, OPS[name]
+    else:
+        raise ValueError(f"--swap {spec}: unknown stage or operation {name}")
+    original = getattr(owner, attr)
+    setattr(owner, attr, _swapped_fn(original, where))
+    try:
+        yield
+    finally:
+        setattr(owner, attr, original)
+
+
+def _svd_errors(svd, a, out):
+    """(singular values, last right singular vector) errors of one batched
+    SVD result against float64 on the CPU: the largest |s - s64| / s64[0]
+    and the largest angle (radians, from the chord between the unit
+    vectors, either sign) between the last rows of vt."""
+    a64 = a.detach().to("cpu", torch.float64)
+    _, s64, vt64 = svd(a64)
+    s, vt = out[1].detach().to("cpu", torch.float64), out[2].detach().to("cpu", torch.float64)
+    s_err = ((s - s64).abs() / s64[..., :1].clamp_min(1e-300)).max()
+    v = vt[..., -1, :] / torch.linalg.vector_norm(vt[..., -1, :], dim=-1, keepdim=True)
+    v64 = vt64[..., -1, :]
+    chord = torch.minimum(torch.linalg.vector_norm(v - v64, dim=-1),
+                          torch.linalg.vector_norm(v + v64, dim=-1))
+    return float(s_err), float((2.0 * torch.asin((chord / 2.0).clamp(max=1.0))).max())
+
+
+@contextlib.contextmanager
+def probed_svd(stats: dict):
+    """Every torch.linalg.svd call measured (not changed): per caller, the
+    worst errors against float64 of the result as computed and of the same
+    input's SVD on the CPU in the input's dtype."""
+    svd = torch.linalg.svd
+
+    def probe(a, *args, **kwargs):
+        out = svd(a, *args, **kwargs)
+        caller = sys._getframe(1).f_code.co_name
+        here = _svd_errors(svd, a, out)
+        cpu = _svd_errors(svd, a, svd(a.detach().cpu(), *args, **kwargs))
+        row = stats.setdefault(caller, {"calls": 0, "s_err": 0.0, "v_rad": 0.0,
+                                        "cpu_s_err": 0.0, "cpu_v_rad": 0.0})
+        row["calls"] += 1
+        for key, v in zip(("s_err", "v_rad", "cpu_s_err", "cpu_v_rad"), here + cpu):
+            row[key] = max(row[key], v)
+        return out
+
+    torch.linalg.svd = probe
+    try:
+        yield
+    finally:
+        torch.linalg.svd = svd
+
+
+def _floats(values):
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().double().numpy()
+    return [float(v) for v in np.asarray(values, np.float64).reshape(-1)]
+
+
+def instrument(tracker, log: list):
+    """Per-frame records of ``tracker`` appended to ``log`` (see --log)."""
+    attempt = tracker._track_attempt
+    process = tracker.process_features
+
+    def logged_attempt(predicted, frame):
+        out = attempt(predicted, frame)
+        pose6, inliers, match_idx = out[0], out[1], out[2]
+        log[-1]["attempts"].append({"matches": int((match_idx >= 0).sum()),
+                                    "inliers": int(inliers), "pose6": _floats(pose6)})
+        return out
+
+    def logged_process(kp_norm, desc, valid, frame_id, time_usec, kp_level, kp_angle):
+        log.append({"frame": int(frame_id), "attempts": [], "init": []})
+        state = process(kp_norm, desc, valid, frame_id, time_usec, kp_level, kp_angle)
+        log[-1].update(state=state, pose6=_floats(tracker._pose),
+                       keyframes=[kf.kf_id for kf in tracker.keyframes],
+                       map_points=int(tracker.point_valid.sum()))
+        return state
+
+    tracker._track_attempt = logged_attempt
+    tracker.process_features = logged_process
+
+
+@contextlib.contextmanager
+def logged_two_view(log: list):
+    """Record each two-view initialization's chosen model (the one of the
+    homography's and the essential matrix's poses nearer its result) and
+    inliers."""
+    solve = tracking.two_view_reconstruction
+    recover = {"E": twoview.recover_pose, "H": twoview.recover_pose_homography}
+    seen = {}
+
+    def recording(model):
+        def wrapped(*args):
+            out = recover[model](*args)
+            seen[model] = out[0].detach().cpu().double()
+            return out
+        return wrapped
+
+    def recording_solve(p1, p2, mask, *args, **kwargs):
+        res = solve(p1, p2, mask, *args, **kwargs)
+        rotation = res.rotation.detach().cpu().double()
+        model = min(seen, key=lambda m: float((seen[m] - rotation).abs().max()))
+        if log and "state" not in log[-1]:  # the logged tracker's own frame
+            log[-1]["init"].append({"matches": int(mask.sum()), "model": model,
+                                    "inliers": int(res.score),
+                                    "rotation": _floats(res.rotation),
+                                    "translation": _floats(res.translation)})
+        return res
+
+    tracking.two_view_reconstruction = recording_solve
+    twoview.recover_pose = recording("E")
+    twoview.recover_pose_homography = recording("H")
+    try:
+        yield
+    finally:
+        tracking.two_view_reconstruction = solve
+        twoview.recover_pose = recover["E"]
+        twoview.recover_pose_homography = recover["H"]
+
+
+def nudge_features(tracker, nudge_seed: int):
+    """Move every keypoint coordinate the tracker receives by one float32
+    ulp, up or down at random (numpy generator ``nudge_seed``): an input
+    change at the rounding level of the extractor's output."""
+    features = tracker.features
+    rng = np.random.default_rng(nudge_seed)
+
+    def nudged(gray):
+        kp_norm, *rest = features(gray)
+        away = np.where(rng.random(kp_norm.shape) < 0.5, -np.inf, np.inf).astype(np.float32)
+        return (np.nextafter(kp_norm, away), *rest)
+
+    tracker.features = nudged
 
 
 def run_seed(frames_u8, seed, patch_impl, loop_closing, pose_of, period, device="cuda",
-             dtype=None):
+             dtype=None, frame_log=None, nudge=None):
     settings = chip_smoke.ride_settings()
     trackers = []
     make = pipeline.tracker_from_settings
@@ -47,26 +278,31 @@ def run_seed(frames_u8, seed, patch_impl, loop_closing, pose_of, period, device=
         tracker.config = dataclasses.replace(tracker.config,
                                              enable_loop_closing=loop_closing)
         tracker._generator.manual_seed(seed)
+        if nudge is not None:
+            nudge_features(tracker, nudge + len(trackers))
+        if frame_log is not None and not trackers:
+            instrument(tracker, frame_log)
         trackers.append(tracker)
         return tracker
 
     out_dir = tempfile.mkdtemp(prefix="pg_ride_seeds_")
     pipeline.tracker_from_settings = seeded_tracker_from_settings
     try:
-        start = time.perf_counter()
-        segments, consumed = pipeline.track_video_segments(
-            (pipeline.VideoFrame(g, i, int(round(i * 1e6 / 30.0)))
-             for i, g in enumerate(frames_u8)),
-            settings, out_dir, device=device, dtype=dtype, patch_impl=patch_impl,
-        )
-        if device == "cuda":
-            torch.cuda.synchronize()
-        seconds = time.perf_counter() - start
+        with logged_two_view(frame_log if frame_log is not None else []):
+            start = time.perf_counter()
+            segments, consumed = pipeline.track_video_segments(
+                (pipeline.VideoFrame(g, i, int(round(i * 1e6 / 30.0)))
+                 for i, g in enumerate(frames_u8)),
+                settings, out_dir, device=device, dtype=dtype, patch_impl=patch_impl,
+            )
+            if device == "cuda":
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
         trajs = [read_trajectory(os.path.join(out_dir, f)) for f in sorted(os.listdir(out_dir))]
     finally:
         pipeline.tracker_from_settings = make
         shutil.rmtree(out_dir, ignore_errors=True)
-    row = {"seed": seed, "loop_closing": loop_closing, "device": device,
+    row = {"seed": seed, "nudge": nudge, "loop_closing": loop_closing, "device": device,
            "dtype": str(trackers[0].dtype), "segments": segments,
            "frames": consumed, "frames_per_s": consumed / seconds,
            "loop_closures": [t.stats["loop_closures"] for t in trackers],
@@ -90,6 +326,13 @@ def main(argv=None) -> int:
     parser.add_argument("--frames", type=int, default=None)
     parser.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     parser.add_argument("--dtype", choices=["float32", "float64"], default=None)
+    parser.add_argument("--log", default=None, help="append per-frame JSON lines here")
+    parser.add_argument("--swap", nargs="+", default=["none"])
+    parser.add_argument("--nudge", type=int, nargs="+", default=None,
+                        help="rerun each seed with the keypoints moved by one float32 ulp "
+                        "(one run per nudge seed)")
+    parser.add_argument("--probe-svd", action="store_true",
+                        help="print each SVD call site's errors against float64")
     args = parser.parse_args(argv)
     if args.device == "cuda":
         if not torch.cuda.is_available():
@@ -101,10 +344,24 @@ def main(argv=None) -> int:
     else:
         frames = list(chip_smoke.render_ride(**_frames(args)))
         patch_impl, pose_of, period = "blur_then_gather", chip_smoke.ride_pose, None
-    for seed in args.seeds:
-        row = run_seed(frames, seed, patch_impl, args.loop_closing == "on", pose_of, period,
-                       args.device, args.dtype and getattr(torch, args.dtype))
-        print(json.dumps({"ride": args.ride, **row}), flush=True)
+    for spec, seed, nudge in itertools.product(args.swap, args.seeds, args.nudge or [None]):
+        frame_log = [] if args.log else None
+        svd_stats = {}
+        probe = probed_svd(svd_stats) if args.probe_svd else contextlib.nullcontext()
+        with swapped(spec), probe:
+            row = run_seed(frames, seed, patch_impl, args.loop_closing == "on", pose_of,
+                           period, args.device, args.dtype and getattr(torch, args.dtype),
+                           frame_log, nudge)
+        head = {"ride": args.ride, "swap": spec}
+        print(json.dumps({**head, **row}), flush=True)
+        if args.probe_svd:
+            print(json.dumps({**head, "seed": seed, "svd_errors": svd_stats}), flush=True)
+        if args.log:
+            with open(args.log, "a") as f:
+                for rec in frame_log:
+                    f.write(json.dumps({**head, "seed": seed, "nudge": nudge,
+                                        "device": row["device"], "dtype": row["dtype"],
+                                        **rec}) + "\n")
     return 0
 
 

@@ -204,3 +204,75 @@ def test_extractor_cuda_matches_cpu(cuda, patch_impl):
     torch.testing.assert_close(cpu.angle, gpu.angle.cpu(), atol=1e-5, rtol=0)
     same = (cpu.descriptors == gpu.descriptors.cpu()).all(dim=1)
     assert float(same[cpu.valid].float().mean()) >= 0.995
+
+
+# ---- the data path (no kernels of its own): results on the card, float64 as the CPU --------
+
+
+@pytest.mark.cuda
+def test_interval_averages_and_smoothing_stay_on_the_card(cuda):
+    from pilotguru_tpu_torch.timeseries.interval_average import annotate_frames_values
+    from pilotguru_tpu_torch.timeseries.smoothing import smooth_quaternion_sequence
+
+    rng = np.random.default_rng(3)
+    times = 1_000_000 + np.cumsum(rng.integers(1000, 20_000, 5000)).astype(np.int64)
+    values = rng.normal(size=times.size)
+    frames = np.arange(times[0] - 50_000, times[-1] + 50_000, 33_333).astype(np.int64)
+    got, valid = annotate_frames_values(times, values, frames, device=cuda)
+    want, want_valid = annotate_frames_values(times, values, frames, device="cpu")
+    assert got.is_cuda and valid.is_cuda
+    assert torch.equal(valid.cpu(), want_valid)
+    ok = want_valid.numpy()
+    np.testing.assert_allclose(got.cpu().numpy()[ok], want.numpy()[ok], rtol=0, atol=1e-12)
+    q = rng.normal(size=(500, 4))
+    smoothed = smooth_quaternion_sequence(q, 2, device=cuda)
+    assert smoothed.is_cuda
+    torch.testing.assert_close(smoothed.cpu(), smooth_quaternion_sequence(q, 2, device="cpu"),
+                               rtol=0, atol=1e-14)
+
+
+@pytest.mark.cuda
+def test_interpolate_in_float64_follows_the_cpu(cuda):
+    from pilotguru_tpu_torch.calib.interpolate import (
+        InterpolationSettings,
+        interpolate_gps_velocities,
+    )
+
+    import chip_smoke
+
+    arrays, _ = chip_smoke.make_imu_ride(120.0, seed=5)
+    frame_t = np.arange(arrays[0][0], arrays[0][-1], 1e6 / 30).astype(np.int64)
+    settings = InterpolationSettings(l1_weight=1.0, iters=300)
+    got = interpolate_gps_velocities(arrays[4], arrays[5], frame_t, settings, device=cuda)
+    want = interpolate_gps_velocities(arrays[4], arrays[5], frame_t, settings, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_corpus_in_float64_follows_the_cpu_with_hills(cuda):
+    from pilotguru_tpu_torch.calib.corpus import RideArrays, fit_motion_corpus
+    from pilotguru_tpu_torch.calib.fit_motion import FitMotionConfig
+
+    import chip_smoke
+
+    rides = [RideArrays(*chip_smoke.make_imu_ride(120.0, climb_m_s=1.5, seed=s)[0])
+             for s in (6, 7)]
+    card = fit_motion_corpus(rides, FitMotionConfig(optimization_iters=30, device="cuda"))
+    cpu = fit_motion_corpus(rides, FitMotionConfig(optimization_iters=30, device="cpu"))
+    # chip_smoke.ANNOTATION_BARS: fit_motion's float64 speeds on a ride with
+    # hills and sensor noise, card against CPU (1.45e-8 m/s read here).
+    for a, b in zip(card, cpu):
+        np.testing.assert_array_equal(a.velocity_times_usec, b.velocity_times_usec)
+        np.testing.assert_allclose(a.velocities_m_s, b.velocities_m_s, rtol=0,
+                                   atol=chip_smoke.ANNOTATION_BARS["float64"]["velocities-imu.json"])
+
+
+@pytest.mark.cuda
+def test_seed_two_loses_track_where_recorded(cuda):
+    """The first 20 parallax frames at RANSAC seed 2 on the card in float32
+    lose track at the recorded frame, as on the CPU in float32: a decision
+    on a rounding-level tie (PERF.md; ROADMAP Queue 3)."""
+    import chip_smoke
+
+    lost = chip_smoke.run_seed_guard(list(chip_smoke.render_ride(frames=20)))
+    assert lost == chip_smoke.SEED_GUARD["lost_at"]

@@ -189,7 +189,8 @@ def test_principal_rotation_axes_and_steering_match_reference(imu_hz, seed):
         trot.chunk_boundaries(r.rot_times_usec, 500_000),
         jrot.chunk_boundaries(r.rot_times_usec, 500_000))
     want_axes, want_vals = jrot.principal_rotation_axes(r.rot_times_usec, r.rot_rates, 500_000)
-    axes, vals = trot.principal_rotation_axes(r.rot_times_usec, r.rot_rates, 500_000)
+    axes, vals = trot.principal_rotation_axes(r.rot_times_usec, r.rot_rates, 500_000,
+                                             device="cpu")
     np.testing.assert_allclose(axes.numpy(), np.asarray(want_axes), rtol=0, atol=1e-12)
     np.testing.assert_allclose(vals.numpy(), np.asarray(want_vals), rtol=1e-9, atol=1e-15)
     want = jrot.angular_velocities_around_axis(jnp.asarray(r.rot_rates), want_axes[0])
@@ -200,7 +201,7 @@ def test_principal_rotation_axes_and_steering_match_reference(imu_hz, seed):
 def test_rotation_axes_refuse_a_short_ride():
     t = np.arange(10, dtype=np.int64) * 100_000
     with pytest.raises(ValueError, match="at least 3 rotation chunks"):
-        trot.principal_rotation_axes(t, np.zeros((10, 3)))
+        trot.principal_rotation_axes(t, np.zeros((10, 3)), device="cpu")
 
 
 # ---- smoothing, merge, pieces ------------------------------------------------------
@@ -213,13 +214,14 @@ def test_smooth_time_series_matches_reference(sigma):
     values = rng.normal(size=800)
     targets = np.sort(rng.uniform(ts[0] - 0.01, ts[-1] + 0.01, 300))
     want = np.asarray(jsmooth.smooth_time_series(values, ts, targets, sigma))
-    got = tsmooth.smooth_time_series(values, ts, targets, sigma).numpy()
+    got = tsmooth.smooth_time_series(values, ts, targets, sigma, device="cpu").numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-13)
     want2 = np.asarray(jsmooth.smooth_time_series(np.stack([values, -values], 1), ts, ts, sigma))
-    got2 = tsmooth.smooth_time_series(np.stack([values, -values], 1), ts, ts, sigma).numpy()
+    got2 = tsmooth.smooth_time_series(np.stack([values, -values], 1), ts, ts, sigma,
+                                      device="cpu").numpy()
     np.testing.assert_allclose(got2, want2, rtol=0, atol=1e-13)
     with pytest.raises(ValueError, match="sigma must be positive"):
-        tsmooth.smooth_time_series(values, ts, targets, 0.0)
+        tsmooth.smooth_time_series(values, ts, targets, 0.0, device="cpu")
 
 
 @pytest.mark.parametrize("imu_hz,seed", [(20.0, 3), (50.0, 0)])

@@ -290,10 +290,10 @@ def test_flatten_matches_reference():
 @pytest.mark.parametrize("sigma", [1, 3])
 def test_smooth_quaternions_matches_reference(sigma):
     q = _trajectory().rotations
-    got = smooth_quaternion_sequence(q, sigma).numpy()
+    got = smooth_quaternion_sequence(q, sigma, device="cpu").numpy()
     np.testing.assert_allclose(got, np.asarray(jax_smooth(q, sigma)), atol=1e-12)
     with pytest.raises(ValueError):
-        smooth_quaternion_sequence(q, 0)
+        smooth_quaternion_sequence(q, 0, device="cpu")
 
 
 # ------------------------------------------------------------ configuration

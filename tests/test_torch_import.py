@@ -37,7 +37,18 @@ def test_port_imports_neither_jax_nor_cv2():
             "pilotguru_tpu_torch.calib.pieces", "pilotguru_tpu_torch.calib.rotation_axis",
             "pilotguru_tpu_torch.geometry.strapdown", "pilotguru_tpu_torch.timeseries.merge",
             "pilotguru_tpu_torch.utils.profiling", "pilotguru_tpu_torch.utils.strings",
-            "pilotguru_tpu_torch.cli.fit_motion"} <= set(mods)
+            "pilotguru_tpu_torch.cli.fit_motion", "pilotguru_tpu_torch.calib.corpus",
+            "pilotguru_tpu_torch.calib.interpolate", "pilotguru_tpu_torch.calib.integrate",
+            "pilotguru_tpu_torch.calib.forward_axis_calibrator",
+            "pilotguru_tpu_torch.solvers.gradient_descent", "pilotguru_tpu_torch.formats.can",
+            "pilotguru_tpu_torch.timeseries.interval_average", "pilotguru_tpu_torch.utils.fma",
+            "pilotguru_tpu_torch.utils.segments", "pilotguru_tpu_torch.cli.preprocess_corpus",
+            "pilotguru_tpu_torch.cli.preprocess_all", "pilotguru_tpu_torch.cli.process_can_frames",
+            "pilotguru_tpu_torch.cli.interpolate_velocity",
+            "pilotguru_tpu_torch.cli.integrate_motion", "pilotguru_tpu_torch.cli.annotate_frames",
+            "pilotguru_tpu_torch.cli.smooth_heading_directions",
+            "pilotguru_tpu_torch.cli.project_translations",
+            "pilotguru_tpu_torch.cli.make_linear_adjusted_label_shift"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
