@@ -34,18 +34,40 @@ Phases (each raises on failure, so the script exits non-zero):
      loop closed, K1 and K3 launched once a frame each, K2 never, and the
      trajectory within LOOP_TRUTH_BARS, the end-to-start closure error
      among them;
-  9. fit_motion's path (run_fit_motion): fit_motion_arrays on a 300 s and
+  9. the optical_trajectories CLI (its main, with its flags) over the
+     parallax ride written as a gray PNG image list with rgb.txt and a
+     settings YAML written by vo/camera.py, in a child process where cv2
+     cannot be imported (run_vo_cli_image_list): the trajectory equal to
+     phase 7's to the byte, K1 and K2 once a frame, frames/s beside phase
+     7's;
+ 10. the CLI on the golden mp4 (run_golden_cli), when video/io.py finds a
+     decoder on this machine (mp4_decoder): within SLICE_BARS of the golden
+     trajectory and of the port's CPU run on the same frames;
+ 11. make_steering_dataset on a 600-frame 640x360 road ride (render_road,
+     an RGB PNG image list, tests/synthetic.py-shaped JSONs) to 66x200 YUV,
+     on the card and on the CPU: every npz array and PNG equal; seconds
+     and examples/s;
+ 12. predict_video with a 3-net PilotNet ensemble at 66x200x3 (weights from
+     a numpy seed, written as flax msgpack by the port's codec) over the
+     same frames on the card in float32 and bfloat16 and on the CPU in
+     float32: float32 within PREDICT_F32_BAR on every frame, bfloat16
+     within PREDICT_BF16_BAR; the CLI's frames/s, the forward pass alone at
+     batch 1 and 1,024 (ms, examples/s, peak memory) and the device's idle
+     share over the CLI (torch.profiler). The CPU references of phases 10
+     to 12 run in one child process beside the card's runs;
+ 13. fit_motion's path (run_fit_motion): fit_motion_arrays on a 300 s and
      a 1,800 s IMU + GPS ride in float32 and float64, timed (ride-s/s,
      per-stage ms, peak device memory), each within the velocity RMSE bar
      of the ride's true speed, and the card's float64 against the port's
-     float64 on the CPU;
- 10. the corpus path (run_corpus): fit_motion_corpus on bench.py's corpus
+     float64 on the CPU, with each stage's output (fit_motion_stages) on
+     the rides with hills;
+ 14. the corpus path (run_corpus): fit_motion_corpus on bench.py's corpus
      (8 rides of 300 s, each with its own noise seed) in float32 and
      float64, timed (ride-s/s, peak device memory), each ride within the
      RMSE bar and equal, bit for bit, to its own fit_motion_arrays result;
      then the preprocess_corpus CLI over the rides written as ride
      directories, timed with its JSON;
- 11. the ride-annotation path (run_annotation): on a 1,800 s ride with
+ 15. the ride-annotation path (run_annotation): on a 1,800 s ride with
      54,000 frame times at 30 fps and a Kia CAN log, preprocess_all,
      interpolate_velocity, integrate_motion, annotate_frames (speeds, and
      steering smoothed), smooth_heading_directions and project_translations
@@ -54,14 +76,14 @@ Phases (each raises on failure, so the script exits non-zero):
      on a 300 s ride with hills on the card in float32 and float64 and on
      the CPU in float64: the card's float outputs within ANNOTATION_BARS of
      the CPU's, the host-only outputs identical;
- 12. the kernels' times, one level at a time and all levels in one launch,
+ 16. the kernels' times, one level at a time and all levels in one launch,
      each beside its bound, and beside K1 two floors: an empty kernel on
      its grid and a copy of its bytes;
- 13. one JSON line with every kernel at the shape the paths give it (all 8
+ 17. one JSON line with every kernel at the shape the paths give it (all 8
      levels of a 720p frame in one launch): launches
-     on the paths, error against the plain version, device ms, plain ms,
-     the card's bound, a library call's ms where one exists; then, last,
-     one JSON object
+     on the paths (phases 7, 8 and 9), error against the plain version,
+     device ms, plain ms, the card's bound, a library call's ms where one
+     exists; then, last, one JSON object
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
@@ -245,6 +267,21 @@ def _quat_to_matrix(q):
     ])
 
 
+def sim3_aligned(src, dst):
+    """Camera centres ``src`` [N, 3] aligned to ``dst`` by Sim(3)
+    (Umeyama): (aligned centres, the rotation, their RMSE to ``dst``,
+    ``dst``'s path length)."""
+    src = np.asarray(src, np.float64)
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    u, d, vt = np.linalg.svd((dst - mu_d).T @ (src - mu_s) / len(src))
+    sign = np.diag([1.0, 1.0, np.sign(np.linalg.det(u) * np.linalg.det(vt))])
+    r = u @ sign @ vt
+    c = np.trace(np.diag(d) @ sign) / (((src - mu_s) ** 2).sum() / len(src))
+    aligned = (c * (r @ (src - mu_s).T)).T + mu_d
+    rmse = np.sqrt(((aligned - dst) ** 2).sum(1).mean())
+    return aligned, r, rmse, np.linalg.norm(np.diff(dst, axis=0), axis=1).sum()
+
+
 def trajectory_errors(traj, pose_of=ride_pose, period=None) -> dict:
     """A written trajectory against the ride's true poses (``pose_of``).
 
@@ -265,16 +302,7 @@ def trajectory_errors(traj, pose_of=ride_pose, period=None) -> dict:
         d = (est_c2w[0].T @ r_est).T @ (true_c2w[0].T @ r_true)
         rot_err.append(np.degrees(np.arccos(np.clip((np.trace(d) - 1) / 2, -1, 1))))
 
-    src, dst = np.asarray(traj.translations, np.float64), true_c
-    mu_s, mu_d = src.mean(0), dst.mean(0)
-    u, d, vt = np.linalg.svd((dst - mu_d).T @ (src - mu_s) / len(src))
-    sign = np.diag([1.0, 1.0, np.sign(np.linalg.det(u) * np.linalg.det(vt))])
-    r = u @ sign @ vt
-    c = np.trace(np.diag(d) @ sign) / (((src - mu_s) ** 2).sum() / len(src))
-    aligned = (c * (r @ (src - mu_s).T)).T + mu_d
-    rmse = np.sqrt(((aligned - dst) ** 2).sum(1).mean())
-    length = np.linalg.norm(np.diff(dst, axis=0), axis=1).sum()
-
+    aligned, r, rmse, length = sim3_aligned(traj.translations, true_c)
     normal = r @ np.cross(traj.plane[0], traj.plane[1])
     cos = abs(normal[1]) / np.linalg.norm(normal)
     errors = {
@@ -867,7 +895,7 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     launched ``launches_per_frame[kernel]`` times a frame (0: not at all),
     no plain version on a CUDA tensor, loop closures (at least one
     with ``expect_loops``, else none) and the written trajectory within
-    ``bars`` of the true poses. Returns the launch counts."""
+    ``bars`` of the true poses. Returns (the launch counts, the seconds)."""
     import torch
 
     from pilotguru_tpu_torch.formats.trajectory import read_trajectory
@@ -969,7 +997,7 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
         f"plain calls on CUDA {plain_calls}",
         flush=True,
     )
-    return launches
+    return launches, seconds
 
 
 # White sensor noise of a seeded make_imu_ride (standard deviations).
@@ -1083,6 +1111,56 @@ def _fit_distance(a, b, true_speed) -> dict:
     }
 
 
+def fit_motion_stages(arrays, config) -> dict:
+    """fit_motion_arrays' stage outputs, in pipeline order: the rotation-axis
+    PCA's axes, the steering rates about the vertical, the host's ride
+    pieces (all arrays, concatenated), the batched LM's window parameters
+    and final losses, the per-event speeds before smoothing, the smoothed
+    speeds and the forward axis."""
+    from pilotguru_tpu_torch.calib import fit_motion
+
+    seen = {}
+    wrapped = {}
+
+    def record(name, fn, pick):
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            seen.setdefault(name, pick(args, out))
+            return out
+        wrapped[name] = fn
+        return wrapper
+
+    def as_np(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+    fit_motion.principal_rotation_axes = record(
+        "principal_rotation_axes", fit_motion.principal_rotation_axes,
+        lambda args, out: as_np(out[0]))
+    fit_motion.build_ride_pieces = record(
+        "build_ride_pieces", fit_motion.build_ride_pieces,
+        lambda args, out: np.concatenate([
+            np.asarray(getattr(out, f), np.float64).ravel() for f in (
+                "event_times_usec", "piece_end_usec", "piece_rot_rates",
+                "piece_accelerations", "piece_dt_sec", "piece_gps_end_index",
+                "piece_event_index", "piece_next_event_differs")]))
+    fit_motion.smooth_time_series = record(
+        "smooth_time_series", fit_motion.smooth_time_series,
+        lambda args, out: np.asarray(args[0], np.float64))
+    try:
+        result = fit_motion.fit_motion_arrays(*arrays, config)
+    finally:
+        for name, fn in wrapped.items():
+            setattr(fit_motion, name, fn)
+    return {"pca_axes": seen["principal_rotation_axes"],
+            "steering": result.steering_angular_velocities,
+            "window_pieces": seen["build_ride_pieces"],
+            "lm_window_params": result.window_params,
+            "lm_final_loss": result.window_final_loss,
+            "event_speeds_before_smoothing": seen["smooth_time_series"],
+            "smoothed_speeds": result.velocities_m_s,
+            "forward_axis": result.forward_axis}
+
+
 def run_fit_motion(reps: int = 3):
     """fit_motion's path on the card: fit_motion_arrays (the library entry
     of the fit_motion CLI) on the bench's 300 s ride and on a 1,800 s drive,
@@ -1159,6 +1237,19 @@ def run_fit_motion(reps: int = 3):
          fit_motion_arrays(*hills, config(torch.float64)),
          fit_motion_arrays(*hills, config(torch.float64, "cpu")), hills_speed, FIT_HILLS_BARS),
     )
+    # Where the card's float64 parts from the CPU's: each stage's output, on
+    # this ride and on the annotation phase's noisy one (seed 101).
+    for label, ride in (("with hills", hills),
+                        ("with hills and noise (seed 101)",
+                         make_imu_ride(short, climb_m_s=1.5, seed=101)[0])):
+        stages = {device: fit_motion_stages(ride, config(torch.float64, device))
+                  for device in ("cuda", "cpu")}
+        parts = {k: float(np.abs(stages["cuda"][k] - stages["cpu"][k]).max())
+                 for k in stages["cpu"]}
+        first = next((k for k, v in parts.items() if v > 1e-12), None)
+        print(f"fit_motion {short:.0f} s ride {label}, float64, each stage's output on the "
+              f"card against the CPU (largest absolute difference, in pipeline order): "
+              f"{json.dumps(parts)}; first stage over 1e-12: {first}", flush=True)
     for name, a, b, speed_of, bars in checks:
         distance = _fit_distance(a, b, speed_of)
         print(f"fit_motion {short:.0f} s ride, {name}: {json.dumps(distance)}; bars "
@@ -1670,6 +1761,518 @@ def run_annotation(parallax_trajectory):
     return rows
 
 
+# The VO CLI in a child process where cv2 cannot be imported: the card
+# needs no cv2 even on a machine that has it. It prints one JSON line: the
+# exit code, the seconds, and the kernels' launches.
+VO_CLI_CHILD = """
+import json, sys, time
+sys.modules["cv2"] = None  # import cv2 now raises ImportError
+import torch
+from pilotguru_tpu_torch.cli import optical_trajectories
+from pilotguru_tpu_torch.vo import fast_kernel, patch_kernel
+counters = (fast_kernel.COUNTER, patch_kernel.COUNTER, patch_kernel.BLUR_COUNTER)
+for c in counters:
+    c.reset()
+start = time.perf_counter()
+code = optical_trajectories.main(sys.argv[1:])
+if torch.cuda.is_available():
+    torch.cuda.synchronize()
+print(json.dumps({"exit": code, "seconds": time.perf_counter() - start,
+                  "cv2_unimportable": sys.modules["cv2"] is None,
+                  "launches": {c.name: c.launches for c in counters},
+                  "plain_cuda_calls": {c.name: c.plain_cuda_calls for c in counters}}))
+"""
+
+
+def run_vo_cli_image_list(frames_u8, out_dir, phase7_trajectory, phase7_seconds):
+    """The optical_trajectories CLI (its main, with its flags) on the
+    parallax ride's frames written as a gray PNG image list with rgb.txt
+    (phase 7's timestamps) and a settings YAML written by vo/camera.py, in
+    a child process without cv2: the trajectory must equal phase 7's file
+    byte for byte, K1 and K2 launch once a frame and K3 never. Returns the
+    row (with the launches)."""
+    from pilotguru_tpu_torch.video.io import write_image_list
+    from pilotguru_tpu_torch.vo.camera import write_camera_settings
+
+    start = time.perf_counter()
+    index = write_image_list(os.path.join(out_dir, "frames"), frames_u8,
+                             [int(round(i * 1e6 / 30.0)) for i in range(len(frames_u8))])
+    settings = os.path.join(out_dir, "camera.yaml")
+    write_camera_settings(ride_settings(), settings)
+    written = time.perf_counter() - start
+    traj_dir = os.path.join(out_dir, "trajectories")
+    env = dict(os.environ, PILOTGURU_TPU_PLATFORM="cuda", PYTHONPATH=REPO_DIR)
+    run = subprocess.run(
+        [sys.executable, "-c", VO_CLI_CHILD, f"--camera_settings={settings}",
+         f"--in_video={index}", f"--out_dir={traj_dir}"],
+        capture_output=True, text=True, env=env, timeout=900)
+    if run.returncode != 0:
+        raise AssertionError(f"VO CLI on the image list failed:\n{run.stderr[-4000:]}")
+    child = json.loads(run.stdout.strip().splitlines()[-1])
+    with open(os.path.join(traj_dir, "trajectory-0000.json"), "rb") as f:
+        got = f.read()
+    with open(phase7_trajectory, "rb") as f:
+        same = f.read() == got
+    n = len(frames_u8)
+    row = {"frames": n, "png_list_written_s": written, "cli_seconds": child["seconds"],
+           "cli_frames_per_s": n / child["seconds"],
+           "phase7_frames_per_s": n / phase7_seconds, "launches": child["launches"],
+           "plain_cuda_calls": child["plain_cuda_calls"],
+           "cv2_unimportable": child["cv2_unimportable"],
+           "segments": sorted(os.listdir(traj_dir)), "trajectory_equals_phase7": same}
+    print(f"VO CLI on a gray PNG image list (child process, cv2 unimportable): "
+          f"{json.dumps(row)}", flush=True)
+    want = {"fast_nms": n, "gather_patches": n, "gather_blurred_patches": 0}
+    if not (child["exit"] == 0 and child["cv2_unimportable"] and same
+            and row["segments"] == ["trajectory-0000.json"] and child["launches"] == want
+            and not any(child["plain_cuda_calls"].values())):
+        raise AssertionError(f"VO CLI on the image list: {json.dumps(row)}; want launches "
+                             f"{want} and phase 7's trajectory")
+    return row
+
+
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+GOLDEN_VIDEO = os.path.join(REPO_DIR, "tests", "golden", "inputs", "video.mp4")
+GOLDEN_CAMERA = os.path.join(REPO_DIR, "tests", "golden", "inputs", "camera.yaml")
+GOLDEN_TRAJECTORY = os.path.join(REPO_DIR, "tests", "golden", "expected", "vo",
+                                 "trajectory-0000.json")
+# tests/test_torch_slice.py's bars on the golden video: the centre RMSE after
+# a Sim(3) alignment as a share of the path (3%), the plane normal (2
+# degrees) and the per-frame rotation's mean (0.5 degrees) and worst. For
+# the worst, the file's 1.25 degrees guards the CPU run's own RANSAC draws
+# only; the bar it names for a run with other draws is the JAX package's
+# per-frame run plus 0.1 degrees (1.402 + 0.1, test_torch_slice_replay.py).
+# The card's float32 run reads 1.365 (PERF.md).
+SLICE_BARS = {"centre_rmse_of_path": 0.03, "normal_deg": 2.0, "rotation_max_deg": 1.402 + 0.1,
+              "rotation_mean_deg": 0.5}
+
+
+def mp4_decoder(path: str):
+    """The route that decodes ``path`` here (video/io.py), or None."""
+    from pilotguru_tpu_torch.video import io as video_io
+
+    try:
+        next(video_io.read_frames_rgb(path))
+    except RuntimeError:
+        return None
+    return "native libav reader" if video_io.native_video.available() else "cv2"
+
+
+def trajectory_distance(a, b) -> dict:
+    """Trajectory ``a`` against ``b`` (the same frames), as
+    tests/test_torch_slice.py measures the port against the golden. Frame
+    times may differ by 1 us: the cv2 route truncates the decoder's
+    millisecond position (as the JAX package's does), the native reader
+    rounds the stream's timestamps."""
+    time_gap = int(np.abs(np.asarray(a.time_usec) - np.asarray(b.time_usec)).max())
+    if not (np.array_equal(a.frame_id, b.frame_id) and time_gap <= 1):
+        raise AssertionError("the trajectories cover different frames")
+    _, _, rmse, length = sim3_aligned(a.translations, np.asarray(b.translations, np.float64))
+    na, nb = np.cross(*a.plane), np.cross(*b.plane)
+    cos = abs(na @ nb) / np.linalg.norm(na) / np.linalg.norm(nb)
+    rot = [np.degrees(np.arccos(np.clip((np.trace(_quat_to_matrix(qa).T @ _quat_to_matrix(qb))
+                                         - 1) / 2, -1, 1)))
+           for qa, qb in zip(a.rotations, b.rotations)]
+    return {"centre_rmse_of_path": float(rmse / length),
+            "normal_deg": float(np.degrees(np.arccos(min(cos, 1.0)))),
+            "rotation_max_deg": float(max(rot)), "rotation_mean_deg": float(np.mean(rot)),
+            "time_gap_usec": time_gap}
+
+
+def golden_cli_argv(out_dir):
+    return [f"--camera_settings={GOLDEN_CAMERA}", f"--in_video={GOLDEN_VIDEO}",
+            f"--out_dir={out_dir}"]
+
+
+def run_golden_cli(out_dir):
+    """The VO CLI on the golden mp4 on the card (in this process, through
+    the decoder found): timed, K1 and K2 once a frame, one segment of the
+    golden's 120 frames within SLICE_BARS of the golden trajectory. Returns
+    (row, trajectory path)."""
+    from pilotguru_tpu_torch.cli import optical_trajectories
+    from pilotguru_tpu_torch.formats.trajectory import read_trajectory
+
+    counters = _kernel_counters()
+    for c in counters:
+        c.reset()
+    start = time.perf_counter()
+    with _platform("cuda"):
+        if optical_trajectories.main(golden_cli_argv(out_dir)) != 0:
+            raise AssertionError("VO CLI on the golden video: non-zero exit")
+    seconds = time.perf_counter() - start
+    launches = {c.name: c.launches for c in counters}
+    path = os.path.join(out_dir, "trajectory-0000.json")
+    traj = read_trajectory(path)
+    errors = trajectory_distance(traj, read_trajectory(GOLDEN_TRAJECTORY))
+    row = {"frames": len(traj), "cli_seconds": seconds, "frames_per_s": len(traj) / seconds,
+           "launches": launches, "against_golden": errors, "bars": SLICE_BARS,
+           "segments": sorted(os.listdir(out_dir))}
+    print(f"VO CLI on the golden mp4 on the card: {json.dumps(row)}", flush=True)
+    over = {k: errors[k] for k, v in SLICE_BARS.items() if not errors[k] <= v}
+    want = {"fast_nms": 120, "gather_patches": 120, "gather_blurred_patches": 0}
+    if over or launches != want or row["segments"] != ["trajectory-0000.json"]:
+        raise AssertionError(f"VO CLI on the golden mp4: over the bars {over}, launches "
+                             f"{launches} (want {want}), segments {row['segments']}")
+    return row, path
+
+
+# The dataset ride: a numpy-drawn road at 640x360, 30 fps, 600 frames, whose
+# curve follows the IMU yaw rate; PilotNet's published 66x200x3 input after
+# a crop of the sky and the hood.
+ROAD = {"frames": 600, "width": 640, "height": 360, "fps": 30.0, "t0_usec": 1_000_000,
+        "crop": {"crop_top": 150, "crop_bottom": 30}}
+
+
+def road_yaw_rate(t_sec):
+    return 0.3 * np.sin(2 * np.pi * t_sec / 7.0)
+
+
+def road_speed(t_sec):
+    return 9.0 + 3.0 * np.sin(2 * np.pi * t_sec / 37.0)
+
+
+def render_road(seed: int = 21):
+    """Yield ROAD["frames"] uint8 [H, W, 3] RGB frames: sky, grass with a
+    fixed texture, and a road whose centre line bends with the yaw rate and
+    whose lane dashes move with the speed."""
+    h, w = ROAD["height"], ROAD["width"]
+    rng = np.random.default_rng(seed)
+    texture = rng.integers(-18, 19, (h, w, 1))
+    horizon = int(0.4 * h)
+    rows = np.arange(h)[:, None]
+    cols = np.arange(w)[None, :]
+    ground = rows > horizon
+    background = np.clip(np.where(ground[..., None], np.array([60, 125, 50]),
+                                  np.array([135, 180, 235])) + texture, 0, 255).astype(np.uint8)
+    asphalt = np.clip(75 + texture // 2, 0, 255).astype(np.uint8).repeat(3, axis=2)
+    depth = np.clip((rows - horizon) / (h - horizon), 1e-3, 1.0)  # 0 far, 1 near
+    bend, half, dash_half = 260 * (1 - depth) ** 2, 20 + 260 * depth, 2 + 5 * depth
+    travelled = 0.0
+    for i in range(ROAD["frames"]):
+        t = i / ROAD["fps"]
+        travelled += road_speed(t) / ROAD["fps"]
+        offset = np.abs(cols - (w / 2 + bend * road_yaw_rate(t)))
+        road = (offset < half) & ground
+        dash = (offset < dash_half) & (((3.0 / depth + travelled) % 4.0) < 2.0) & ground
+        img = background.copy()
+        img[road] = asphalt[road]
+        img[dash] = 235
+        yield img
+
+
+def write_road_ride(root):
+    """The road's frames as an RGB PNG image list, and tests/synthetic.py-
+    shaped JSONs: frames.json, steering (IMU angular velocity, 200 Hz),
+    velocities (200 Hz), the forward axis and the crop. Returns the paths."""
+    from pilotguru_tpu_torch.formats import json_io, keys
+    from pilotguru_tpu_torch.video.io import write_image_list
+
+    n, t0 = ROAD["frames"], ROAD["t0_usec"]
+    times = [t0 + int(round(i * 1e6 / ROAD["fps"])) for i in range(n)]
+    paths = {"images": write_image_list(os.path.join(root, "frames"), render_road(), times)}
+    paths["frames"] = os.path.join(root, "frames.json")
+    json_io.write_json({keys.FRAMES: [{keys.FRAME_ID: i, keys.TIME_USEC: t}
+                                      for i, t in enumerate(times)]}, paths["frames"])
+    imu = np.arange(t0 - 100_000, times[-1] + 100_000, 5_000, dtype=np.int64)
+    t_sec = (imu - t0) * 1e-6
+    paths["steering"] = os.path.join(root, "steering.json")
+    json_io.write_timestamped_values(imu, road_yaw_rate(t_sec), paths["steering"],
+                                     keys.STEERING, "angular_velocity")
+    paths["velocities"] = os.path.join(root, "velocities.json")
+    json_io.write_timestamped_values(imu, road_speed(t_sec), paths["velocities"],
+                                     keys.VELOCITIES, keys.SPEED_M_S)
+    paths["forward"] = os.path.join(root, "forward.json")
+    json_io.write_forward_axis(np.array([0.9998, 0.02, 0.0]), paths["forward"])
+    paths["crop"] = os.path.join(root, "crop.json")
+    json_io.write_json({"crop_settings": ROAD["crop"]}, paths["crop"])
+    return paths
+
+
+def dataset_argv(paths, out_dir):
+    """make_steering_dataset's flags: every frame, labels now and 10 frames
+    ahead, YUV at 66x200, float64 annotation on either device (so the card
+    and the CPU write the same labels)."""
+    return [f"--in_video={paths['images']}", f"--in_frames_json={paths['frames']}",
+            f"--in_steering_json={paths['steering']}", "--steering_source=imu",
+            f"--in_velocities_json={paths['velocities']}",
+            f"--in_forward_axis_json={paths['forward']}",
+            f"--crop_settings_json={paths['crop']}", f"--out_dir={out_dir}",
+            "--frames_step=1", "--label_lookahead_frames=0,10", "--target_height=66",
+            "--target_width=200", "--convert_to_yuv=1", "--save_png_every=100",
+            "--dtype=float64"]
+
+
+# The ensemble: 3 NVIDIA PilotNets at the published 66x200x3 input, head
+# 10, batch norm on, the forward-axis LinearBias; weights from a numpy seed.
+PILOTNET = {"nets": 3, "settings": {"net_name": "nvidia", "net_head_dims": 10,
+                                    "label_dimensions": 1, "target_height": 66,
+                                    "target_width": 200}}
+# Card float32 against the CPU's float32, every frame's steering (TF32 off).
+PREDICT_F32_BAR = 1e-4
+# Card bfloat16 against the CPU's float32, every frame: 3.4 times the card's
+# first reading, 8.93e-4 (RMS 3.2e-4, of outputs whose RMS is 0.067).
+PREDICT_BF16_BAR = 3e-3
+
+
+def write_pilotnet_checkpoints(root, seed: int = 5):
+    """PILOTNET["nets"] flax msgpack checkpoints written by the port's codec:
+    kernels ~ N(0, 1/fan_in), batch-norm scale, bias and statistics drawn
+    from numpy ``seed``. Returns the paths."""
+    from pilotguru_tpu_torch.cli.predict_video import network_from_settings
+    from pilotguru_tpu_torch.ml import convert
+    from pilotguru_tpu_torch.utils import msgpack
+
+    rng = np.random.default_rng(seed)
+
+    def draw(name, shape, path):
+        if name == "kernel":
+            std = 0.1 if "LinearBias" in path else 1.0 / np.sqrt(np.prod(shape[:-1]))
+            return rng.normal(0, std, shape)
+        if name == "var":
+            return rng.uniform(0.5, 1.5, shape)
+        if name == "scale":
+            return rng.uniform(0.8, 1.2, shape)
+        return rng.normal(0, 0.05, shape)  # bias, mean
+
+    def fill(node, path=""):
+        return {k: fill(v, f"{path}/{k}") if isinstance(v, dict)
+                else draw(k, v.shape, path).astype(np.float32) for k, v in node.items()}
+
+    template = convert.flax_variables(network_from_settings(PILOTNET["settings"], (66, 200, 3)))
+    paths = []
+    for i in range(PILOTNET["nets"]):
+        paths.append(os.path.join(root, f"pilotnet-{i}.msgpack"))
+        with open(paths[-1], "wb") as f:
+            f.write(msgpack.packb(fill(template)))
+    return paths
+
+
+def predict_argv(paths, checkpoints, settings_json, out_json):
+    return [f"--in_video={paths['images']}", f"--forward_axis_json={paths['forward']}",
+            f"--net_settings_json={settings_json}", f"--in_model_weights={','.join(checkpoints)}",
+            f"--out_steering_json={out_json}", "--convert_to_yuv=1",
+            f"--crop_top={ROAD['crop']['crop_top']}",
+            f"--crop_bottom={ROAD['crop']['crop_bottom']}",
+            "--trajectory_frame_update_rate=1.0"]
+
+
+# The CPU references of the new phases, in one child process beside the
+# card's runs: each job is (CLI module, argv); prints one JSON line of
+# seconds by job.
+CPU_COMPANION = """
+import importlib, json, sys, time
+jobs = json.loads(sys.argv[1])
+seconds = {}
+for name, module, argv in jobs:
+    start = time.perf_counter()
+    if importlib.import_module("pilotguru_tpu_torch.cli." + module).main(argv) != 0:
+        raise SystemExit(name + ": non-zero exit")
+    seconds[name] = time.perf_counter() - start
+print(json.dumps(seconds))
+"""
+
+
+def start_cpu_companion(jobs):
+    # Four threads: the card's runs beside it keep the rest of the host.
+    env = dict(os.environ, PILOTGURU_TPU_PLATFORM="cpu", CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="4", PYTHONPATH=REPO_DIR)
+    return subprocess.Popen([sys.executable, "-c", CPU_COMPANION, json.dumps(jobs)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_cpu_companion(proc):
+    out, err = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"the CPU reference runs failed:\n{err[-4000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def compare_datasets(card_dir, cpu_dir) -> dict:
+    names = sorted(os.listdir(cpu_dir))
+    if names != sorted(os.listdir(card_dir)):
+        raise AssertionError("make_steering_dataset: the card and the CPU wrote other files")
+    arrays = 0
+    for name in names:
+        a, b = os.path.join(card_dir, name), os.path.join(cpu_dir, name)
+        if name.endswith(".npz"):
+            with np.load(a) as x, np.load(b) as y:
+                if sorted(x.files) != sorted(y.files):
+                    raise AssertionError(f"{name}: other arrays")
+                for key in x.files:
+                    if x[key].dtype != y[key].dtype or not np.array_equal(x[key], y[key]):
+                        raise AssertionError(f"make_steering_dataset: {name} {key} differs "
+                                             "between the card and the CPU")
+                    arrays += 1
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                if fa.read() != fb.read():
+                    raise AssertionError(f"make_steering_dataset: {name} differs")
+    return {"files": len(names), "examples": sum(n.endswith(".npz") for n in names),
+            "pngs": sum(n.endswith(".png") for n in names), "arrays_equal": arrays}
+
+
+def _steering(path):
+    from pilotguru_tpu_torch.formats import json_io
+
+    events = json_io.read_json(path)["steering"]
+    return np.array([e["frame_id"] for e in events]), np.array([e["steering"] for e in events])
+
+
+def forward_timings(checkpoints, reps=20) -> list:
+    """The ensemble's forward pass alone on the card (inputs already there),
+    float32 and bfloat16, at batch 1 and 1,024: CUDA-event ms (median of
+    ``reps``), examples/s and peak device memory."""
+    import torch
+
+    from pilotguru_tpu_torch.cli.predict_video import load_predictor
+
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        settings = {**PILOTNET["settings"], "compute_dtype": dtype}
+        predictor = load_predictor(settings, checkpoints, (66, 200, 3), "cuda")
+        for batch in (1, 1024):
+            gen = torch.Generator(device="cuda").manual_seed(batch)
+            inputs = {"frame_img": torch.rand((batch, 66, 200, 3), device="cuda", generator=gen),
+                      "forward_axis": torch.rand((batch, 3), device="cuda", generator=gen)}
+
+            def forward():
+                with torch.no_grad():
+                    return torch.stack([net(inputs) for net in predictor.nets]).mean(0)
+
+            forward()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(reps):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                forward()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+            ms = statistics.median(times)
+            rows.append({"dtype": dtype, "batch": batch, "ms": ms,
+                         "examples_per_s": 1e3 * batch / ms,
+                         "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20})
+            print(f"PilotNet x{PILOTNET['nets']} forward pass on the card: "
+                  f"{json.dumps(rows[-1])}", flush=True)
+    return rows
+
+
+def device_idle_share(fn) -> dict:
+    """Run ``fn`` under torch.profiler (CUDA activity): its wall seconds, the
+    device's busy ms (kernels and copies, one stream) and the idle share;
+    raises unless ``fn`` returns 0 (a CLI's exit code)."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        if fn() != 0:
+            raise AssertionError("the profiled run exited non-zero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    busy_us = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"wall_s": wall, "device_busy_ms": busy_us / 1e3,
+            "idle_share": 1.0 - busy_us / 1e6 / wall}
+
+
+def run_frame_input_phases(root, decoder):
+    """The golden mp4 through the VO CLI (where ``decoder`` is not None),
+    make_steering_dataset on the road ride, and predict_video with the
+    PilotNet ensemble, on the card; their CPU references run beside in
+    one child process. Returns the rows."""
+    from pilotguru_tpu_torch.cli import make_steering_dataset, predict_video
+    from pilotguru_tpu_torch.formats import json_io
+    from pilotguru_tpu_torch.formats.trajectory import read_trajectory
+
+    rows = {}
+    start = time.perf_counter()
+    paths = write_road_ride(os.path.join(root, "road"))
+    checkpoints = write_pilotnet_checkpoints(root)
+    settings = {}
+    for dtype in ("float32", "bfloat16"):
+        settings[dtype] = os.path.join(root, f"settings-{dtype}.json")
+        json_io.write_json({**PILOTNET["settings"], "compute_dtype": dtype}, settings[dtype])
+    rows["inputs_written_s"] = time.perf_counter() - start
+    out = {k: os.path.join(root, k) for k in ("golden_card", "golden_cpu", "data_card",
+                                              "data_cpu")}
+    jobs = [("dataset", "make_steering_dataset", dataset_argv(paths, out["data_cpu"])),
+            ("predict float32", "predict_video",
+             predict_argv(paths, checkpoints, settings["float32"],
+                          os.path.join(root, "predict-cpu.json")))]
+    if decoder:
+        jobs.insert(0, ("golden VO", "optical_trajectories", golden_cli_argv(out["golden_cpu"])))
+    companion = start_cpu_companion(jobs)
+    try:
+        counters = _kernel_counters()
+        if decoder:
+            rows["golden"], card_path = run_golden_cli(out["golden_card"])
+        times = {}
+        with _platform("cuda"):
+            for c in counters:
+                c.reset()
+            _run_cli(times, "dataset", make_steering_dataset.main,
+                     dataset_argv(paths, out["data_card"]))
+            # The float32 run under the profiler (its cost is within the
+            # runs' spread): its wall time and the device's idle share.
+            rows["idle"] = device_idle_share(lambda: predict_video.main(predict_argv(
+                paths, checkpoints, settings["float32"],
+                os.path.join(root, "predict-card-float32.json"))))
+            times["predict float32"] = rows["idle"]["wall_s"]
+            _run_cli(times, "predict bfloat16", predict_video.main,
+                     predict_argv(paths, checkpoints, settings["bfloat16"],
+                                  os.path.join(root, "predict-card-bfloat16.json")))
+            _no_kernel_launches("dataset and inference", counters)
+        rows["forward"] = forward_timings(checkpoints)
+    finally:
+        cpu_seconds = finish_cpu_companion(companion)
+
+    n = ROAD["frames"]
+    if decoder:
+        cpu = read_trajectory(os.path.join(out["golden_cpu"], "trajectory-0000.json"))
+        distance = trajectory_distance(read_trajectory(card_path), cpu)
+        rows["golden"].update(cpu_seconds=cpu_seconds["golden VO"], card_against_cpu=distance)
+        print(f"VO CLI on the golden mp4, card float32 against the port's CPU run (float64, "
+              f"same frames): {json.dumps(distance)}; bars {json.dumps(SLICE_BARS)}", flush=True)
+        over = {k: distance[k] for k, v in SLICE_BARS.items() if not distance[k] <= v}
+        if over:
+            raise AssertionError(f"golden mp4: the card's run is far from the CPU's: {over}")
+    compared = compare_datasets(out["data_card"], out["data_cpu"])
+    rows["dataset"] = {**compared, "card_seconds": times["dataset"],
+                       "card_examples_per_s": compared["examples"] / times["dataset"],
+                       "cpu_seconds": cpu_seconds["dataset"]}
+    print(f"make_steering_dataset on the road ride ({n} frames 640x360 -> 66x200 YUV), card "
+          f"against CPU: {json.dumps(rows['dataset'])}", flush=True)
+    if compared["examples"] < 0.9 * n:
+        raise AssertionError(f"make_steering_dataset wrote {compared['examples']} examples")
+
+    ids, cpu32 = _steering(os.path.join(root, "predict-cpu.json"))
+    diffs = {}
+    for dtype in ("float32", "bfloat16"):
+        card_ids, card = _steering(os.path.join(root, f"predict-card-{dtype}.json"))
+        if not (np.array_equal(card_ids, ids) and len(ids) == n and np.isfinite(card).all()):
+            raise AssertionError(f"predict_video {dtype}: frames or values malformed")
+        d = card - cpu32
+        diffs[dtype] = {"max_abs": float(np.abs(d).max()), "rms": float(np.sqrt(np.mean(d ** 2)))}
+    rows["predict"] = {"frames": n, "output_rms": float(np.sqrt(np.mean(cpu32 ** 2))),
+                       "output_std": float(np.std(cpu32)),
+                       "card_against_cpu_float32": diffs,
+                       "bars": {"float32": PREDICT_F32_BAR, "bfloat16": PREDICT_BF16_BAR},
+                       "card_frames_per_s": {k: n / times[f"predict {k}"]
+                                             for k in ("float32", "bfloat16")},
+                       "cpu_float32_frames_per_s": n / cpu_seconds["predict float32"],
+                       "float32_run_profiled": rows["idle"]}
+    print(f"predict_video, PilotNet x{PILOTNET['nets']} at 66x200x3 on the road ride: "
+          f"{json.dumps(rows['predict'])}", flush=True)
+    if not (diffs["float32"]["max_abs"] <= PREDICT_F32_BAR
+            and diffs["bfloat16"]["max_abs"] <= PREDICT_BF16_BAR
+            and rows["predict"]["output_std"] > 1e-4):
+        raise AssertionError(f"predict_video: over the bars {json.dumps(diffs)}")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1715,17 +2318,24 @@ def main() -> int:
 
     out_dir = tempfile.mkdtemp(prefix="pg_chip_smoke_")
     try:
-        parallax = run_path(
+        parallax, parallax_seconds = run_path(
             "parallax path", ride, os.path.join(out_dir, "parallax"),
             "blur_then_gather",
             {"fast_nms": 1, "gather_patches": 1, "gather_blurred_patches": 0},
             ride_pose, TRUTH_BARS,
         )
-        loop = run_path(
+        loop, _ = run_path(
             "loop ride", loop_ride, os.path.join(out_dir, "loop"), "fused",
             {"fast_nms": 1, "gather_patches": 0, "gather_blurred_patches": 1}, loop_pose,
             LOOP_TRUTH_BARS, period=LOOP_PERIOD, expect_loops=True,
         )
+        vo_cli = run_vo_cli_image_list(
+            ride, os.path.join(out_dir, "vo_cli"),
+            os.path.join(out_dir, "parallax", "trajectory-0000.json"), parallax_seconds)
+        decoder = mp4_decoder(GOLDEN_VIDEO)
+        print(f"mp4 decoder on this machine (video/io.py's routes): {decoder or 'none'}; the "
+              f"golden-video phase {'runs' if decoder else 'is skipped'}", flush=True)
+        run_frame_input_phases(os.path.join(out_dir, "frame_input"), decoder)
         run_fit_motion()
         run_corpus()
         run_annotation(os.path.join(out_dir, "parallax", "trajectory-0000.json"))
@@ -1739,7 +2349,8 @@ def main() -> int:
     def entry(name, source, replaces, shape, row, one_level=None):
         """``row``: the kernel at the shape the paths give it; ``one_level``:
         its one-level call at level 0, where the paths use the all-level one."""
-        launches = {"parallax": parallax[name], "loop": loop[name]}
+        launches = {"parallax": parallax[name], "loop": loop[name],
+                    "vo_cli": vo_cli["launches"][name]}
         out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,

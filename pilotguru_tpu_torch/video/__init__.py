@@ -1,1 +1,2 @@
-"""Video and image-list readers of the port (its own copies)."""
+"""Frame input of the port: image lists and video readers (its own copies),
+PNG on zlib and cv2-equal image processing, none of which needs cv2."""

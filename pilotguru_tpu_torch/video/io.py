@@ -1,5 +1,15 @@
-"""TUM-style image-list reading (copied from pilotguru_tpu/video/io.py);
-cv2 is imported inside the reader, not with the module."""
+"""Frame input: TUM-style image lists and video files, as RGB frames.
+
+The routes, in order, none of which needs cv2 but the last:
+
+1. an image list (an index .txt file or a directory holding rgb.txt):
+   PNG frames through ``video/png.py``;
+2. a video file through the native libav reader (``video/native.py``),
+   when ``native/build/libpgvideo.so`` is built;
+3. a video file through cv2.VideoCapture, imported inside the call.
+
+When no route can open the input, the error names the routes tried.
+"""
 
 from __future__ import annotations
 
@@ -7,6 +17,35 @@ import os
 from typing import Iterator, Tuple
 
 import numpy as np
+
+from pilotguru_tpu_torch.video import native as native_video
+from pilotguru_tpu_torch.video.png import read_png_rgb, write_png
+
+
+def _read_image_rgb(path: str) -> np.ndarray:
+    """One image file as uint8 RGB: PNG on zlib, any other format through
+    cv2 (imported here)."""
+    with open(path, "rb") as f:
+        is_png = f.read(8) == b"\x89PNG\r\n\x1a\n"
+    if is_png:
+        return read_png_rgb(path)
+    try:
+        import cv2
+    except ImportError as e:
+        raise RuntimeError(f"{path}: not a PNG, and no cv2 to read other image formats "
+                           "(routes tried: the zlib PNG reader, cv2.imread)") from e
+    bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+    if bgr is None:
+        raise ValueError(f"cannot read image {path}")
+    return cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+
+
+def _flipped(rgb: np.ndarray, vertical_flip: bool, horizontal_flip: bool) -> np.ndarray:
+    if vertical_flip:
+        rgb = rgb[::-1]
+    if horizontal_flip:
+        rgb = rgb[:, ::-1]
+    return np.ascontiguousarray(rgb)
 
 
 def read_image_list_rgb(
@@ -20,8 +59,6 @@ def read_image_list_rgb(
 
     Yields (frame_index, time_usec, rgb_frame); flips mirror
     FlippedImageSequenceSource (image_sequence_reader.cc:48-60)."""
-    import cv2
-
     if os.path.isdir(path):
         path = os.path.join(path, "rgb.txt")
     base = os.path.dirname(os.path.abspath(path))
@@ -36,16 +73,85 @@ def read_image_list_rgb(
         if len(parts) < 2:
             raise ValueError(f"malformed image-list line: {line!r}")
         timestamp_sec = float(parts[0])
-        bgr = cv2.imread(os.path.join(base, parts[1]), cv2.IMREAD_COLOR)
-        if bgr is None:
-            raise ValueError(f"cannot read image {parts[1]} from {base}")
-        rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
-        if vertical_flip:
-            rgb = rgb[::-1]
-        if horizontal_flip:
-            rgb = rgb[:, ::-1]
-        yield idx, int(round(timestamp_sec * 1e6)), np.ascontiguousarray(rgb)
+        rgb = _read_image_rgb(os.path.join(base, parts[1]))
+        yield idx, int(round(timestamp_sec * 1e6)), _flipped(rgb, vertical_flip,
+                                                             horizontal_flip)
         idx += 1
+
+
+def write_image_list(path: str, frames, times_usec) -> str:
+    """Write ``frames`` (uint8 [H, W] gray or [H, W, 3] RGB) as PNGs (gray
+    ones as PNG colour type 0) with a TUM index ``rgb.txt`` in directory
+    ``path``; returns the index's path."""
+    os.makedirs(path, exist_ok=True)
+    lines = ["# images", "# file: pilotguru image list", "# timestamp filename"]
+    for i, (frame, t) in enumerate(zip(frames, times_usec)):
+        name = f"{i:06d}.png"
+        write_png(os.path.join(path, name), frame)
+        lines.append(f"{t / 1e6:.6f} {name}")
+    index = os.path.join(path, "rgb.txt")
+    with open(index, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return index
+
+
+def _read_video_cv2(path: str, vertical_flip: bool, horizontal_flip: bool):
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    if not cap.isOpened():
+        raise ValueError(f"cannot open video {path}")
+    try:
+        fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
+        frame_id = 0
+        while True:
+            ok, bgr = cap.read()
+            if not ok:
+                break
+            msec = cap.get(cv2.CAP_PROP_POS_MSEC)
+            time_usec = int(msec * 1000) if msec > 0 else int(frame_id / fps * 1e6)
+            rgb = cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB)
+            yield frame_id, time_usec, _flipped(rgb, vertical_flip, horizontal_flip)
+            frame_id += 1
+    finally:
+        cap.release()
+
+
+def read_frames_rgb(
+    path: str, vertical_flip: bool = False, horizontal_flip: bool = False
+) -> Iterator[Tuple[int, int, np.ndarray]]:
+    """Yield (frame_index, time_usec, rgb_frame) from an image list or a
+    video file, by the first route of the module docstring that applies."""
+    if is_image_list(path):
+        yield from read_image_list_rgb(path, vertical_flip, horizontal_flip)
+        return
+    if native_video.available():
+        with native_video.NativeVideoReader(path, vertical_flip, horizontal_flip) as reader:
+            for frame_id, (rgb, pts_usec) in enumerate(reader):
+                yield frame_id, pts_usec, rgb
+        return
+    try:
+        import cv2  # noqa: F401  (the last route)
+    except ImportError as e:
+        raise RuntimeError(
+            f"no decoder for {path}: routes tried: an image list (not one), the native "
+            "libav reader (libpgvideo.so not built: native/CMakeLists.txt), cv2 (not "
+            "importable). Write the frames as a PNG image list (rgb.txt) to run without "
+            "a codec."
+        ) from e
+    yield from _read_video_cv2(path, vertical_flip, horizontal_flip)
+
+
+def read_video_rgb(
+    path: str, vertical_flip: bool = False, horizontal_flip: bool = False
+) -> Iterator[Tuple[int, np.ndarray]]:
+    """Yield (frame_index, rgb_frame); flips mirror FlippedImageSequenceSource
+    (image_sequence_reader.cc:48-60). The JAX package's read_video_rgb opens
+    video files with cv2 only; this one takes read_frames_rgb's routes and
+    so also accepts a PNG image list, which lets the CLIs that read frames
+    run on a machine without a codec."""
+    for frame_id, _, rgb in read_frames_rgb(path, vertical_flip, horizontal_flip):
+        yield frame_id, rgb
 
 
 def is_image_list(path: str) -> bool:

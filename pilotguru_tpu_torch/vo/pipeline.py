@@ -47,59 +47,18 @@ def video_frames(
     scale: float = 1.0,
 ) -> Iterator[VideoFrame]:
     """Decode a ride video (or a TUM-style image list) to grayscale uint8
-    frames with timestamps: the native libav reader (video/native.py) when
-    it is built, else cv2 (imported here, not at module import)."""
-    import cv2
+    frames with timestamps, by video/io.py's routes (a PNG image list, the
+    native libav reader, cv2 last); the gray conversion and the INTER_AREA
+    resize are video/imgproc.py's, bit-equal to cv2's."""
+    from pilotguru_tpu_torch.video.imgproc import resize_area, rgb_to_gray
+    from pilotguru_tpu_torch.video.io import read_frames_rgb
 
-    from pilotguru_tpu_torch.video import native as native_video
-    from pilotguru_tpu_torch.video.io import is_image_list, read_image_list_rgb
-
-    def gray_of(rgb):
-        gray = cv2.cvtColor(rgb, cv2.COLOR_RGB2GRAY)
+    for frame_id, time_usec, rgb in read_frames_rgb(video_path, vertical_flip,
+                                                    horizontal_flip):
+        gray = rgb_to_gray(rgb)
         if scale != 1.0:
-            gray = cv2.resize(gray, None, fx=scale, fy=scale,
-                              interpolation=cv2.INTER_AREA)
-        return gray
-
-    if is_image_list(video_path):
-        for frame_id, time_usec, rgb in read_image_list_rgb(
-            video_path, vertical_flip, horizontal_flip
-        ):
-            yield VideoFrame(gray_of(rgb), frame_id, time_usec)
-        return
-
-    if native_video.available():
-        with native_video.NativeVideoReader(
-            video_path, vertical_flip, horizontal_flip
-        ) as reader:
-            for frame_id, (rgb, pts_usec) in enumerate(reader):
-                yield VideoFrame(gray_of(rgb), frame_id, pts_usec)
-        return
-
-    cap = cv2.VideoCapture(video_path)
-    if not cap.isOpened():
-        raise ValueError(f"cannot open video {video_path}")
-    try:
-        fps = cap.get(cv2.CAP_PROP_FPS) or 30.0
-        frame_id = 0
-        while True:
-            ok, frame = cap.read()
-            if not ok:
-                break
-            gray = cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY)
-            if scale != 1.0:
-                gray = cv2.resize(gray, None, fx=scale, fy=scale,
-                                  interpolation=cv2.INTER_AREA)
-            if vertical_flip:
-                gray = gray[::-1]
-            if horizontal_flip:
-                gray = gray[:, ::-1]
-            msec = cap.get(cv2.CAP_PROP_POS_MSEC)
-            time_usec = int(msec * 1000) if msec > 0 else int(frame_id / fps * 1e6)
-            yield VideoFrame(np.ascontiguousarray(gray), frame_id, time_usec)
-            frame_id += 1
-    finally:
-        cap.release()
+            gray = resize_area(gray, fx=scale, fy=scale)
+        yield VideoFrame(gray, frame_id, time_usec)
 
 
 def tracker_from_settings(

@@ -14,6 +14,16 @@ frame that is LOST (null if none). This is the reference's side of the
 question whether losing track at some RANSAC seed is a property of the
 tracker or a fault of the port (ride_seeds.py is the port's side, on the
 card).
+
+    python3 reference_seeds.py --fused-golden none twoview@float64
+
+runs instead the fused configuration on the golden video as
+tests/test_torch_slice_fused.py::test_fused_port_with_its_own_two_view
+does (the reference's RANSAC draws replayed, the port's own float32
+two-view solve), once with each of ride_seeds.py's swaps in force, and
+prints the port's and the JAX run's per-frame rotation error against the
+golden trajectory (worst and mean, degrees) beside the test's bar: the JAX
+run's worst plus 0.1 degrees.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ import argparse
 import dataclasses
 import json
 import sys
+import tempfile
 import time
 
 import jax
@@ -53,13 +64,55 @@ def run_key(frames_u8, key):
             "states": states, "seconds": time.perf_counter() - start}
 
 
+def fused_golden(swaps) -> None:
+    import os
+
+    import torch
+
+    sys.path.insert(0, os.path.join(chip_smoke.REPO_DIR, "tests"))
+    import ride_seeds
+    from test_torch_slice_replay import (
+        GOLDEN,
+        jax_per_frame_run,
+        port_replayed_run,
+        rotation_degrees,
+    )
+
+    from pilotguru_tpu.formats.trajectory import read_trajectory
+
+    fused = {"PGTPU_PATCH_IMPL": "fused"}
+    golden = read_trajectory(GOLDEN)
+    with tempfile.TemporaryDirectory() as root:
+        ref, _ = jax_per_frame_run(os.path.join(root, "jax"), fused, two_view_log=[])
+        ref_rot = rotation_degrees(ref.rotations, golden.rotations)
+        for spec in swaps:
+            with ride_seeds.swapped(spec):
+                port, trackers, calls = port_replayed_run(
+                    os.path.join(root, spec.replace("@", "-")), fused,
+                    two_view_dtype=torch.float32)
+            rot = rotation_degrees(port.rotations, golden.rotations)
+            print(json.dumps({
+                "fused_golden": spec, "frames": len(port), "two_view_calls": calls["two_view"],
+                "loop_closures": [t.stats["loop_closures"] for t in trackers],
+                "port_rotation_max_deg": float(rot.max()),
+                "port_rotation_mean_deg": float(rot.mean()),
+                "jax_rotation_max_deg": float(ref_rot.max()),
+                "jax_rotation_mean_deg": float(ref_rot.mean()),
+                "bar_max_deg": float(ref_rot.max() + 0.1)}), flush=True)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--frames", type=int, default=20)
     parser.add_argument("--keys", type=int, nargs="+", default=[0, 1, 2, 3, 4])
     parser.add_argument("--float32", action="store_true",
                         help="x64 off: the tracker computes in float32")
+    parser.add_argument("--fused-golden", nargs="+", default=None, metavar="SWAP",
+                        help="the fused golden-video run under each ride_seeds.py swap")
     args = parser.parse_args(argv)
+    if args.fused_golden:
+        fused_golden(args.fused_golden)
+        return 0
     frames = list(chip_smoke.render_ride(frames=args.frames))
     for key in args.keys:
         print(json.dumps({"ride": "parallax", "x64": jax.config.jax_enable_x64,

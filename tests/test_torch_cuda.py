@@ -276,3 +276,67 @@ def test_seed_two_loses_track_where_recorded(cuda):
 
     lost = chip_smoke.run_seed_guard(list(chip_smoke.render_ride(frames=20)))
     assert lost == chip_smoke.SEED_GUARD["lost_at"]
+
+
+@pytest.mark.cuda
+def test_image_list_cli_without_cv2_on_the_card(cuda, tmp_path):
+    """The VO CLI in a child process without cv2, on the first 40 parallax
+    frames as a gray PNG list, writes the trajectory that the segment loop
+    writes from the same frames in memory, with K1 and K2 once a frame."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    import chip_smoke
+    from pilotguru_tpu_torch.video.io import write_image_list
+    from pilotguru_tpu_torch.vo import pipeline
+    from pilotguru_tpu_torch.vo.camera import write_camera_settings
+
+    frames = list(chip_smoke.render_ride(frames=40))
+    times = [int(round(i * 1e6 / 30.0)) for i in range(len(frames))]
+    index = write_image_list(str(tmp_path / "frames"), frames, times)
+    write_camera_settings(chip_smoke.ride_settings(), str(tmp_path / "camera.yaml"))
+    env = dict(os.environ, PILOTGURU_TPU_PLATFORM="cuda", PYTHONPATH=chip_smoke.REPO_DIR)
+    run = subprocess.run(
+        [sys.executable, "-c", chip_smoke.VO_CLI_CHILD,
+         f"--camera_settings={tmp_path / 'camera.yaml'}", f"--in_video={index}",
+         f"--out_dir={tmp_path / 'cli'}"], capture_output=True, text=True, env=env, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    child = json.loads(run.stdout.strip().splitlines()[-1])
+    assert child["cv2_unimportable"]
+    assert child["launches"] == {"fast_nms": 40, "gather_patches": 40,
+                                 "gather_blurred_patches": 0}
+    pipeline.track_video_segments(
+        (pipeline.VideoFrame(g, i, t) for i, (g, t) in enumerate(zip(frames, times))),
+        chip_smoke.ride_settings(), str(tmp_path / "memory"), device="cuda")
+    assert sorted(os.listdir(tmp_path / "cli")) == sorted(os.listdir(tmp_path / "memory"))
+    for name in os.listdir(tmp_path / "memory"):
+        assert (tmp_path / "cli" / name).read_bytes() == (tmp_path / "memory" / name).read_bytes()
+
+
+@pytest.mark.cuda
+def test_predict_video_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """predict_video with chip_smoke's PilotNet x3 at 66x200x3 over 40 road
+    frames: the card in float32 within 1e-4 of the CPU's float32 on every
+    frame (TF32 off)."""
+    import chip_smoke
+    from pilotguru_tpu_torch.cli import predict_video
+    from pilotguru_tpu_torch.formats import json_io
+
+    monkeypatch.setitem(chip_smoke.ROAD, "frames", 40)
+    paths = chip_smoke.write_road_ride(str(tmp_path / "road"))
+    checkpoints = chip_smoke.write_pilotnet_checkpoints(str(tmp_path))
+    settings = str(tmp_path / "settings.json")
+    json_io.write_json({**chip_smoke.PILOTNET["settings"], "compute_dtype": "float32"}, settings)
+    out = {}
+    for platform in ("cuda", "cpu"):
+        monkeypatch.setenv("PILOTGURU_TPU_PLATFORM", platform)
+        out[platform] = str(tmp_path / f"{platform}.json")
+        assert predict_video.main(chip_smoke.predict_argv(paths, checkpoints, settings,
+                                                          out[platform])) == 0
+    card_ids, card = chip_smoke._steering(out["cuda"])
+    cpu_ids, cpu = chip_smoke._steering(out["cpu"])
+    np.testing.assert_array_equal(card_ids, cpu_ids)
+    assert len(card) == 40
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=chip_smoke.PREDICT_F32_BAR)

@@ -1,8 +1,9 @@
 """The PyTorch port imports torch and never jax, and no module of the JAX
-package pilotguru_tpu (not even one free of JAX); cv2 only inside its video
-decode and camera-YAML functions. Its trajectory files are byte-identical to
-the JAX package's."""
+package pilotguru_tpu (not even one free of JAX); cv2 only inside the
+last-resort routes of its frame input (CV2_FUNCTIONS). Its trajectory files
+are byte-identical to the JAX package's."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -48,7 +49,12 @@ def test_port_imports_neither_jax_nor_cv2():
             "pilotguru_tpu_torch.cli.integrate_motion", "pilotguru_tpu_torch.cli.annotate_frames",
             "pilotguru_tpu_torch.cli.smooth_heading_directions",
             "pilotguru_tpu_torch.cli.project_translations",
-            "pilotguru_tpu_torch.cli.make_linear_adjusted_label_shift"} <= set(mods)
+            "pilotguru_tpu_torch.cli.make_linear_adjusted_label_shift",
+            "pilotguru_tpu_torch.video.imgproc", "pilotguru_tpu_torch.video.png",
+            "pilotguru_tpu_torch.utils.msgpack", "pilotguru_tpu_torch.ml.models",
+            "pilotguru_tpu_torch.ml.convert", "pilotguru_tpu_torch.ml.training",
+            "pilotguru_tpu_torch.ml.prediction", "pilotguru_tpu_torch.cli.predict_video",
+            "pilotguru_tpu_torch.cli.make_steering_dataset"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -63,6 +69,49 @@ def test_port_imports_neither_jax_nor_cv2():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+# The only functions of the port that import cv2: the last routes of frame
+# input (an image that is not a PNG, a video without the native reader) and
+# INTER_AREA upscaling, which video/imgproc.py does not reproduce.
+CV2_FUNCTIONS = {
+    ("pilotguru_tpu_torch/video/io.py", "_read_image_rgb"),
+    ("pilotguru_tpu_torch/video/io.py", "_read_video_cv2"),
+    ("pilotguru_tpu_torch/video/io.py", "read_frames_rgb"),
+    ("pilotguru_tpu_torch/video/imgproc.py", "_upscale_with_cv2"),
+}
+
+
+def _imports_cv2(node) -> bool:
+    return any(
+        (isinstance(n, ast.Import) and any(a.name.split(".")[0] == "cv2" for a in n.names))
+        or (isinstance(n, ast.ImportFrom) and (n.module or "").split(".")[0] == "cv2")
+        for n in ast.walk(node))
+
+
+def test_cv2_only_in_the_last_resort_functions():
+    """No module imports cv2 at module level, and on the frame-input,
+    dataset and inference paths only CV2_FUNCTIONS import it at all;
+    chip_smoke.py does not."""
+    found = set()
+    for dirpath, _, files in os.walk(os.path.join(REPO, "pilotguru_tpu_torch")):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            rel = os.path.relpath(path, REPO)
+            with open(path) as f:
+                tree = ast.parse(f.read())
+            for node in tree.body:
+                if isinstance(node, (ast.Import, ast.ImportFrom)):
+                    assert not _imports_cv2(node), f"{rel} imports cv2 at module level"
+            for node in ast.walk(tree):
+                if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)) and any(
+                        _imports_cv2(stmt) for stmt in node.body):
+                    found.add((rel, node.name))
+    assert found == CV2_FUNCTIONS
+    with open(os.path.join(REPO, "chip_smoke.py")) as f:
+        assert not _imports_cv2(ast.parse(f.read()))
 
 
 def test_chip_smoke_imports_no_jax():
