@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from pilotguru_tpu_torch.geometry.strapdown import integrate_motion
+from pilotguru_tpu_torch.timeseries.interval_average import blocked_cumsum
 from pilotguru_tpu_torch.timeseries.merge import merge_time_series
 
 
@@ -26,7 +27,8 @@ def integrate_motion_debiased(
     """(event_times_usec[1:], speeds_m_s[1:]) as integrate_motion.cc
     writes them: merged events 1..E-1 each get the norm of the debiased
     integrated velocity. Computed on ``device`` in ``dtype``; host numpy
-    out."""
+    out. The ride-long velocity sum runs in XLA's blocked order, the JAX
+    package's on the CPU, on every device."""
     event_times, event_idx = merge_time_series([rot_times_usec, acc_times_usec])
     if event_times.size < 2:
         raise ValueError("need at least 2 merged IMU events")
@@ -38,7 +40,8 @@ def integrate_motion_debiased(
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
     zero = torch.zeros(3, dtype=dtype, device=device)
-    velocities = integrate_motion(put(rates), put(accs), put(dts), zero, zero, zero).velocities
+    velocities = integrate_motion(put(rates), put(accs), put(dts), zero, zero, zero,
+                                  cumsum=blocked_cumsum).velocities
 
     # v(start) = v(end) = 0: remove the implied constant-acceleration drift
     # in proportion to the elapsed time (integrate_motion.cc:91-110).

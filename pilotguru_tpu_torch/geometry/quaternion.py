@@ -53,12 +53,23 @@ def rotation_rate_to_quat(rates, duration_sec):
     """Gyro rate (..., 3) over duration (...,) -> delta quaternion (..., 4).
 
     The reference's exponential map (RotationMotionToQuaternion), with its
-    1e-30 singularity guard; the result is NOT normalized."""
+    1e-30 singularity guard; the result is NOT normalized.
+
+    The scalar part is cos(h) written as 1 - 2 sin^2(h / 2): the same value,
+    but a gyro step's h is about 1e-3 rad, where cos lies within a few ulps
+    of 1 and a library cos that is not correctly rounded there (torch's on
+    the CPU misrounds about one step in ten, CUDA's more) biases every
+    step's norm the same way. A chain of 10^5 steps turns that bias into
+    centimetres per second of integrated speed. The subtraction from 1
+    rounds once, so the scalar part is correctly rounded in float32 on any
+    device, as XLA's cos gives it to the JAX package."""
     duration_sec = torch.as_tensor(duration_sec, dtype=rates.dtype, device=rates.device)
     omega = torch.linalg.vector_norm(rates, dim=-1)
     half_theta = omega * duration_sec * 0.5
     sin_norm = torch.sin(half_theta) / (omega + 1e-30)
-    return torch.cat([torch.cos(half_theta)[..., None], rates * sin_norm[..., None]], dim=-1)
+    sin_quarter = torch.sin(half_theta * 0.5)
+    cos_half = 1.0 - 2.0 * sin_quarter * sin_quarter
+    return torch.cat([cos_half[..., None], rates * sin_norm[..., None]], dim=-1)
 
 
 def quat_cumulative_product(dqs):

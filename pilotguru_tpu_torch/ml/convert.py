@@ -11,10 +11,15 @@ HWIO in flax and OIHW in torch, a dense kernel (in, out) and a torch
 weight (out, in); batch norm's scale / bias are weight / bias, its
 batch_stats mean / var are running_mean / running_var. The first dense
 layer needs no permutation: the port flattens in flax's (H, W, C) order.
+
+The training state (ml/training.py) keeps the flax names and layouts in
+stacked ``[N, ...]`` tensors: ``ensemble_from_flax`` / ``ensemble_to_flax``
+carry it across, and ``module_tensors`` hands one net of it to a module.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Iterator, Tuple
 
 import numpy as np
@@ -122,3 +127,53 @@ def flax_variables(net: models._ImageNetBase) -> Dict:
             _put(stats, path, {"mean": _np(layer.running_mean), "var": _np(layer.running_var)})
         _put(params, path, leaves)
     return {"params": params, "batch_stats": stats}
+
+
+def module_tensors(net: models._ImageNetBase, params: Dict, batch_stats: Dict) -> Dict:
+    """One net's flax-layout tensors (a slice of the training state's
+    stacked trees) as ``net``'s parameter and buffer names, for
+    ``torch.func.functional_call``: the layouts are transposed by views, so
+    gradients reach the flax-layout tensors, and the batch statistics are
+    the given tensors themselves, so a train-mode forward updates them in
+    place."""
+    names = {id(t): name for name, t in
+             itertools.chain(net.named_parameters(), net.named_buffers())}
+    out = {}
+    for path, layer, kind in _layers(net):
+        p = _get(params, path)
+        if kind == "conv":
+            out[names[id(layer.weight)]] = p["kernel"].permute(3, 2, 0, 1)  # HWIO -> OIHW
+            out[names[id(layer.bias)]] = p["bias"]
+        elif kind == "dense":
+            out[names[id(layer.weight)]] = p["kernel"].t()
+            if layer.bias is not None:
+                out[names[id(layer.bias)]] = p["bias"]
+        else:
+            s = _get(batch_stats, path)
+            out[names[id(layer.weight)]] = p["scale"]
+            out[names[id(layer.bias)]] = p["bias"]
+            out[names[id(layer.running_mean)]] = s["mean"]
+            out[names[id(layer.running_var)]] = s["var"]
+    return out
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(trees[0], dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def ensemble_from_flax(params: Dict, batch_stats: Dict, device="cpu"):
+    """The JAX package's stacked ``EnsembleState.params`` / ``batch_stats``
+    (numpy, or anything numpy reads; leading axis the net) as the port's
+    stacked float32 tensors on ``device``: the same names and layouts."""
+    def put(a):
+        return torch.as_tensor(np.array(a, np.float32), device=device)
+    return tree_map(put, params), tree_map(put, batch_stats)
+
+
+def ensemble_to_flax(params: Dict, batch_stats: Dict):
+    """The port's stacked training state as the JAX package's: nested dicts
+    of float32 numpy arrays, leading axis the net."""
+    return tree_map(_np, params), tree_map(_np, batch_stats)

@@ -12,7 +12,15 @@ checkpoints (``ml/convert.py``) carry across. In PyTorch idiom:
   ``input_shape``): torch layers need their input widths, flax infers them.
 - Conv padding is VALID (0). Batch norm: epsilon 1e-5 and momentum 0.1 in
   torch's convention (flax's 0.9), computed in float32 and cast back to the
-  compute dtype, as the JAX package's blocks do.
+  compute dtype, as the JAX package's blocks do. In train mode
+  (``net.train()``) it is flax's, written out rather than taken from
+  ``nn.BatchNorm``: the batch's one-pass biased variance
+  ``mean(x^2) - mean(x)^2``, clamped at 0, normalises and updates the
+  running variance (torch's would update with the unbiased one), and the
+  running statistics move as ``0.9 * running + (1 - 0.9) * batch``.
+- Dropout (train mode only) draws its masks from the ``generator`` given to
+  ``forward``, never from the global generator: ``2d`` drops whole
+  channels, ``vanilla`` single activations, ``alpha`` is SELU's.
 - ``compute_dtype``: the convs and the blocks' dense layers compute in
   ``resolve_compute_dtype`` (bfloat16 on CUDA, the accelerator default the
   JAX package gives its TPU; float32 on the CPU) by an explicit cast;
@@ -98,14 +106,46 @@ def _activation(name: str):
     raise ValueError(f"unknown activation type: {name}")
 
 
-def _dropout(kind: str, rate: float) -> nn.Module:
-    if kind == DROPOUT_VANILLA:
-        return nn.Dropout(rate)
-    if kind == DROPOUT_2D:
-        return nn.Dropout2d(rate)  # whole channels, as flax's broadcast over H, W
+# flax.linen.BatchNorm's momentum in flax's convention, for the train-mode
+# update of the running statistics.
+FLAX_BATCHNORM_MOMENTUM = 0.9
+# -scale * alpha of SELU (the JAX package's AlphaDropout).
+_ALPHA_PRIME = -1.7580993408473766
+
+
+def dropout(x: torch.Tensor, kind: str, rate: float, generator: torch.Generator) -> torch.Tensor:
+    """Dropout of an NCHW or [B, F] activation with masks from
+    ``generator``: flax's nn.Dropout (kept values divided by the keep
+    probability), ``2d`` with one draw per (example, channel), or the JAX
+    package's AlphaDropout."""
+    if kind not in (DROPOUT_VANILLA, DROPOUT_2D, DROPOUT_ALPHA):
+        raise ValueError(f"unknown dropout type: {kind}")
+    if generator is None:
+        raise ValueError("dropout in train mode needs an explicit torch.Generator")
+    keep = 1.0 - rate
+    shape = x.shape[:2] + (1,) * (x.dim() - 2) if kind == DROPOUT_2D else x.shape
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
     if kind == DROPOUT_ALPHA:
-        return nn.AlphaDropout(rate)
-    raise ValueError(f"unknown dropout type: {kind}")
+        a = (keep + _ALPHA_PRIME ** 2 * keep * (1 - keep)) ** -0.5
+        b = -a * _ALPHA_PRIME * (1 - keep)
+        return a * torch.where(mask, x, torch.full_like(x, _ALPHA_PRIME)) + b
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def batch_norm_train(x: torch.Tensor, bn: nn.Module) -> torch.Tensor:
+    """flax's train-mode BatchNorm of a float32 NCHW or [B, F] activation
+    over every axis but the channel's: normalises with the batch statistics
+    and updates ``bn``'s running statistics in place (no gradient)."""
+    axes = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    mean = x.mean(axes)
+    var = torch.clamp(torch.mean(x * x, axes) - mean * mean, min=0.0)
+    with torch.no_grad():
+        m = FLAX_BATCHNORM_MOMENTUM
+        bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+        bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 
 
 def _conv_out(size: int, kernel: int, stride: int) -> int:
@@ -123,18 +163,21 @@ class _Block(nn.Module):
         self.layer = layer
         self.bn = bn if options[BATCHNORM] else None
         self.act = _activation(options[ACTIVATION])
-        self.dropout = _dropout(options[DROPOUT], dropout_prob) if dropout_prob > 0 else None
+        self.dropout_kind = options[DROPOUT]
+        self.dropout_prob = dropout_prob
 
     def _apply_layer(self, x, dtype):
         raise NotImplementedError
 
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: torch.dtype,
+                generator: torch.Generator = None) -> torch.Tensor:
         x = self._apply_layer(x.to(dtype), dtype)
         if self.bn is not None:
-            x = self.bn(x.float()).to(dtype)
+            x = (batch_norm_train(x.float(), self.bn) if self.training
+                 else self.bn(x.float())).to(dtype)
         x = self.act(x)
-        if self.dropout is not None:
-            x = self.dropout(x)
+        if self.training and self.dropout_prob > 0:
+            x = dropout(x, self.dropout_kind, self.dropout_prob, generator)
         return x
 
 
@@ -256,10 +299,10 @@ class ToyConvNet(_ImageNetBase):
         dims = [h * w * c, 120, 84, 1]
         self.denses.extend(nn.Linear(a, b) for a, b in zip(dims, dims[1:]))
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator: torch.Generator = None):
         x, dt = self._frame(inputs)
         for block in self.conv_blocks:
-            x = F.max_pool2d(block(x, dt), 2, 2)
+            x = F.max_pool2d(block(x, dt, generator), 2, 2)
         x = _flatten(x)
         act = _activation(self._blocks[FC][ACTIVATION])
         x = act(_dense(x, self.denses[0]))
@@ -280,13 +323,13 @@ class NvidiaSingleFrameNet(_ImageNetBase):
                                   (head, 0.0)])
         self.denses.append(nn.Linear(n, options[LABEL_DIMENSIONS]))
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator: torch.Generator = None):
         x, dt = self._frame(inputs)
         for block in self.conv_blocks:
-            x = block(x, dt)
+            x = block(x, dt, generator)
         x = _flatten(x)
         for block in self.fc_blocks:
-            x = block(x, dt)
+            x = block(x, dt, generator)
         return self._post(_dense(x, self.denses[0]), inputs)
 
 
@@ -301,11 +344,11 @@ class RamboCommaNet(_ImageNetBase):
         self.denses.append(nn.Linear(n, options[NET_HEAD_DIMS]))
         self.denses.append(nn.Linear(options[NET_HEAD_DIMS], options[LABEL_DIMENSIONS]))
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator: torch.Generator = None):
         x, dt = self._frame(inputs)
         for block in self.conv_blocks:
-            x = block(x, dt)
-        x = self.fc_blocks[0](_flatten(x), dt)
+            x = block(x, dt, generator)
+        x = self.fc_blocks[0](_flatten(x), dt, generator)
         x = F.relu(_dense(x, self.denses[0]))
         return self._post(_dense(x, self.denses[1]), inputs)
 
@@ -325,13 +368,13 @@ class RamboNVidiaNet(_ImageNetBase):
         self.denses.append(nn.Linear(n, head))
         self.denses.append(nn.Linear(head, options[LABEL_DIMENSIONS]))
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator: torch.Generator = None):
         x, dt = self._frame(inputs)
         for block in self.conv_blocks:
-            x = block(x, dt)
+            x = block(x, dt, generator)
         x = _flatten(x)
         for block in self.fc_blocks:
-            x = block(x, dt)
+            x = block(x, dt, generator)
         x = F.relu(_dense(x, self.denses[0]))
         return self._post(_dense(x, self.denses[1]), inputs)
 
@@ -348,13 +391,13 @@ class DeepNVidiaNet(_ImageNetBase):
         self.denses.append(nn.Linear(n, head))
         self.denses.append(nn.Linear(head, options[LABEL_DIMENSIONS]))
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator: torch.Generator = None):
         x, dt = self._frame(inputs)
         for block in self.conv_blocks:
-            x = block(x, dt)
+            x = block(x, dt, generator)
         x = _flatten(x)
         for block in self.fc_blocks:
-            x = block(x, dt)
+            x = block(x, dt, generator)
         x = _activation(self._blocks[FC][ACTIVATION])(_dense(x, self.denses[0]))
         return self._post(_dense(x, self.denses[1]), inputs)
 
@@ -386,16 +429,16 @@ class UdacityRamboNet(_ImageNetBase):
                                 range(f0, len(self.fc_blocks))))
         self.denses.append(nn.Linear(3 * head, options[LABEL_DIMENSIONS]))
 
-    def forward(self, inputs):
+    def forward(self, inputs, generator: torch.Generator = None):
         frame, dt = self._frame(inputs)
         heads = []
         for branch, (convs, fcs) in enumerate(self._spans):
             x = frame
             for i in convs:
-                x = self.conv_blocks[i](x, dt)
+                x = self.conv_blocks[i](x, dt, generator)
             x = _flatten(x)
             for i in fcs:
-                x = self.fc_blocks[i](x, dt)
+                x = self.fc_blocks[i](x, dt, generator)
             heads.append(_dense(x, self.denses[branch]))
         out = _dense(torch.cat(heads, dim=1), self.denses[3])
         return self._post(out, inputs)

@@ -24,24 +24,27 @@ import numpy as np
 import torch
 
 
-def blocked_cumsum(x: torch.Tensor, block: int = 16) -> torch.Tensor:
-    """Inclusive cumulative sum of a 1-D tensor in the order of XLA's CPU
+def blocked_cumsum(x: torch.Tensor, block: int = 16, dim: int = 0) -> torch.Tensor:
+    """Inclusive cumulative sum along ``dim`` in the order of XLA's CPU
     cumsum (the JAX package's ``jnp.cumsum``, which made the goldens):
     left to right within blocks of 16, the blocks' totals summed the same
     way recursively, and each block's running sums then offset by the
     total of the blocks before it. The same float sums, so the same bits,
-    on any device: about 16 launches a level, log16(N) levels."""
-    n = x.shape[0]
+    on any device (CUDA's own float32 cumsum along a strided axis drifts
+    far more): about 16 launches a level, log16(N) levels."""
+    if dim != 0:
+        return blocked_cumsum(x.movedim(dim, 0), block).movedim(0, dim)
+    n, rest = x.shape[0], x.shape[1:]
     rows = -(-n // block)
-    cols = torch.cat([x, x.new_zeros(rows * block - n)]).reshape(rows, block)
+    cols = torch.cat([x, x.new_zeros((rows * block - n,) + rest)]).reshape((rows, block) + rest)
     running = [cols[:, 0]]
     for k in range(1, block):
         running.append(running[-1] + cols[:, k])
-    inner = torch.stack(running, dim=1)  # [rows, block]
+    inner = torch.stack(running, dim=1)  # [rows, block, ...]
     if rows > 1:
         before = blocked_cumsum(inner[:, -1], block)[:-1]
-        inner = torch.cat([inner[:1], inner[1:] + before[:, None]])
-    return inner.reshape(-1)[:n]
+        inner = torch.cat([inner[:1], inner[1:] + before.unsqueeze(1)])
+    return inner.reshape((-1,) + rest)[:n]
 
 
 def time_averaged_values(values, times_usec, query_start_usec, query_end_usec,

@@ -100,7 +100,7 @@ def test_port_checkpoint_loads_in_jax_and_bytes_equal_flax(tmp_path):
                 module.running_mean.uniform_(-0.1, 0.1)
                 module.running_var.uniform_(0.5, 1.5)
     path = str(tmp_path / "port.msgpack")
-    training.save_net(net, path)
+    training.save_module(net, path)
     tree = convert.flax_variables(net)
     with open(path, "rb") as f:
         assert f.read() == flax.serialization.msgpack_serialize(tree)

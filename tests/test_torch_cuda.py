@@ -340,3 +340,56 @@ def test_predict_video_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch):
     np.testing.assert_array_equal(card_ids, cpu_ids)
     assert len(card) == 40
     np.testing.assert_allclose(card, cpu, rtol=0, atol=chip_smoke.PREDICT_F32_BAR)
+
+
+@pytest.mark.cuda
+def test_folded_train_step_on_the_card_matches_the_cpu(cuda):
+    """One folded PilotNet x3 train step (Adam, float32, batch 32, augmentation
+    off, net 2 masked off) on the card against the same step on the CPU."""
+    from pilotguru_tpu_torch.ml import augmentation, convert, models, training
+
+    options = {"net_name": "nvidia", "net_head_dims": 10, "label_dimensions": 1,
+               "dropout_prob": 0.0, "compute_dtype": "float32"}
+    bias = [{"input_name": "forward_axis", "input_dims": 3}]
+    model = models.make_network(options, bias, (66, 200, 3))
+    settings = training.TrainSettings(epochs=1, batch_size=32, optimizer="adam",
+                                      augment=augmentation.AugmentSettings(target_width=200))
+    tx = training.make_optimizer("adam", 1e-3)
+    rng = np.random.default_rng(4)
+    batch = {"frame_img": torch.as_tensor(rng.integers(0, 256, (32, 66, 200, 3), dtype=np.uint8)),
+             "forward_axis": torch.as_tensor(rng.normal(size=(32, 3)).astype(np.float32))}
+    labels = torch.as_tensor(rng.normal(0, 0.5, (32, 1)).astype(np.float32))
+    weights = torch.as_tensor(rng.uniform(0.5, 1.5, (3, 32)).astype(np.float32))
+    mask = torch.tensor([True, True, False])
+    out = {}
+    for device in ("cpu", cuda):
+        state = training.init_ensemble(model, {}, 3, tx, seed=1, device=device)
+        step = training.make_train_step(model, tx, settings)
+        state, losses, _ = step(state, {k: v.to(device) for k, v in batch.items()},
+                                labels.to(device), weights.to(device), mask.to(device),
+                                torch.Generator(device=device).manual_seed(0))
+        out[str(device)] = (losses.cpu(), convert.ensemble_to_flax(state.params, state.batch_stats))
+    (cpu_losses, (cpu_params, cpu_stats)), (card_losses, (card_params, card_stats)) = out.values()
+    torch.testing.assert_close(card_losses, cpu_losses, rtol=1e-4, atol=1e-6)
+
+    def leaves(tree):
+        return [v for t in tree.values() for v in (leaves(t) if isinstance(t, dict) else [t])]
+
+    for want, got in zip(leaves(cpu_stats), leaves(card_stats)):
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
+        np.testing.assert_array_equal(got[2], want[2])
+    def named(tree, prefix=""):
+        return [kv for k, t in tree.items()
+                for kv in (named(t, f"{prefix}{k}/") if isinstance(t, dict) else [(prefix + k, t)])]
+
+    for (name, want), (_, got) in zip(named(cpu_params), named(card_params)):
+        np.testing.assert_array_equal(got[2], want[2])
+        if name.endswith("Conv_0/bias") or (name.startswith("FcBlock_")
+                                            and name.endswith("Dense_0/bias")):
+            # A bias just before batch norm: its gradient is rounding noise,
+            # which Adam turns into +-lr on either device.
+            assert np.abs(got - want).max() <= 2e-3 * 1.001, name
+            continue
+        # Adam's first step is about +-lr: 99% within 1% of it; elements
+        # whose gradient is within rounding of 0 may take either sign.
+        assert np.mean(np.abs(got - want) <= 1e-5) > 0.99, name

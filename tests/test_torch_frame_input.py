@@ -139,7 +139,7 @@ def test_dataset_and_inference_clis_without_cv2(tmp_path, monkeypatch):
     net = models.make_network({models.NET_NAME: "toy", models.NET_HEAD_DIMS: 10,
                                models.LABEL_DIMENSIONS: 1},
                               [{"input_name": "forward_axis", "input_dims": 3}], (48, 64, 3))
-    training.save_net(net, str(tmp_path / "net.msgpack"))
+    training.save_module(net, str(tmp_path / "net.msgpack"))
     json_io.write_json({"net_name": "toy", "target_height": 48, "target_width": 64},
                        str(tmp_path / "settings.json"))
 

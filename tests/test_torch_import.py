@@ -54,7 +54,10 @@ def test_port_imports_neither_jax_nor_cv2():
             "pilotguru_tpu_torch.utils.msgpack", "pilotguru_tpu_torch.ml.models",
             "pilotguru_tpu_torch.ml.convert", "pilotguru_tpu_torch.ml.training",
             "pilotguru_tpu_torch.ml.prediction", "pilotguru_tpu_torch.cli.predict_video",
-            "pilotguru_tpu_torch.cli.make_steering_dataset"} <= set(mods)
+            "pilotguru_tpu_torch.cli.make_steering_dataset", "pilotguru_tpu_torch.ml.data",
+            "pilotguru_tpu_torch.ml.weighting", "pilotguru_tpu_torch.ml.augmentation",
+            "pilotguru_tpu_torch.ml.folded", "pilotguru_tpu_torch.cli.train",
+            "pilotguru_tpu_torch.cli.hyperparams_search"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -117,7 +120,7 @@ def test_cv2_only_in_the_last_resort_functions():
 def test_chip_smoke_imports_no_jax():
     """chip_smoke.py and the measurement scripts beside it."""
     code = (
-        "import sys; import chip_smoke, profile_vo, ride_seeds\n"
+        "import sys; import chip_smoke, profile_vo, ride_seeds, integrate_stages, train_rounding\n"
         "print('jax' in sys.modules, 'cv2' in sys.modules,\n"
         "      [k for k in sys.modules if k.split('.')[0] == 'pilotguru_tpu'])\n"
     )
