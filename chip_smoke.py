@@ -73,6 +73,38 @@ Phases (each raises on failure, so the script exits non-zero):
      to 4,096 in float32 and bfloat16 (ms, examples/s, peak memory, device
      operations a step), and the device's idle share over one train_models
      epoch;
+ 12e. predict_live (run_predict_live) on the card over the road ride's PNG
+     list with phase 12's checkpoints in float32, a ZMQ SUB thread on
+     ipc://: the received {"s": degrees} an in-order subsequence of phase
+     12's float32 predict_video steering x 90 within PREDICT_F32_BAR;
+     frames/s, messages received, host ms a frame from read to send;
+ 12f. the saliency gradient of render_input_pixel_importance (run_saliency)
+     on the card against the CPU on 64 road frames at batch 8, float32,
+     within SALIENCY's bars (the difference's RMS, the share of pixels
+     off); then the CLI over the ride: seconds, frames/s, peak device
+     memory, frames written;
+ 12g. the BA oracle, bundle_adjust(solver="dense") (run_dense_ba), on the
+     card in float64 on the local BA of phase 7's last keyframe, against the
+     Schur path within DENSE_BA_BARS with equal inlier masks; the dense
+     Jacobian's size reckoned first, each solve's ms, the dense solve's
+     peak device memory;
+ 12h. map checkpoints (run_map_resume): phase 7's tracker saved after frame
+     MAP_SAVE_FRAME (vo/map_io.py; the save leaves phase 7 as it is and
+     its time is taken off phase 7's),
+     loaded into a fresh tracker on the card that tracks the rest of the
+     ride: every frame OK, K1 and K2 once a frame, the joined trajectory
+     within TRUTH_BARS, and whether it equals phase 7's;
+ 12i. the VO CLI on the golden mp4 with --visualize and
+     --visualize_live_port=0 (run_visualize, where a decoder exists): the
+     trajectory equal to phase 10's to the byte, an overlay video of every
+     frame, /state.json, / and one JPEG fetched while the ride tracks, K1
+     and K2 once a frame; then --output_per_segment_videos on it: the
+     segment video holds the OK frames, the JSON's ids index it and its
+     poses are phase 10's from the first OK frame on;
+ 12j. render_frame_numbers, render_motion and calibrate on the card's
+     machine (run_host_tools; host only, no kernel runs): frames and shapes
+     written, calibrate on board.mp4 within CALIBRATE_BAR of the golden
+     YAML;
  13. fit_motion's path (run_fit_motion): fit_motion_arrays on a 300 s and
      a 1,800 s IMU + GPS ride in float32 and float64, timed (ride-s/s,
      per-stage ms, peak device memory), each within the velocity RMSE bar
@@ -100,7 +132,7 @@ Phases (each raises on failure, so the script exits non-zero):
      its grid and a copy of its bytes;
  17. one JSON line with every kernel at the shape the paths give it (all 8
      levels of a 720p frame in one launch): launches
-     on the paths (phases 7, 8 and 9), error against the plain version,
+     on the paths (phases 7, 8, 9, 12h and 12i), error against the plain version,
      device ms, plain ms, the card's bound, a library call's ms where one
      exists; then, last, one JSON object
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -907,14 +939,17 @@ class _StepClock:
 
 
 def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
-             pose_of, bars, period=None, expect_loops=False):
+             pose_of, bars, period=None, expect_loops=False, untimed=None):
     """Drive optical_trajectories' segment loop over ``frames_u8`` on CUDA
     at 2000 features / 8 levels, with the kernel counts set to 0 just before
     and read just after. Checks: every frame in one segment, each kernel
     launched ``launches_per_frame[kernel]`` times a frame (0: not at all),
     no plain version on a CUDA tensor, loop closures (at least one
     with ``expect_loops``, else none) and the written trajectory within
-    ``bars`` of the true poses. Returns (the launch counts, the seconds)."""
+    ``bars`` of the true poses. ``untimed``: a dict whose "seconds" the
+    smoke's own instrumentation spent inside the run (phase 7's map save,
+    capture_parallax_state), taken off the run's seconds and its track
+    stage. Returns (the launch counts, the seconds)."""
     import torch
 
     from pilotguru_tpu_torch.formats.trajectory import read_trajectory
@@ -960,7 +995,9 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     finally:
         pipeline.tracker_from_settings = make
         clock.restore()
-    seconds = time.perf_counter() - start
+    untimed_s = untimed["seconds"] if untimed else 0.0
+    seconds = time.perf_counter() - start - untimed_s
+    stages["track"] -= untimed_s
     launches = {c.name: c.launches for c in counters}
     plain_calls = {c.name: c.plain_cuda_calls for c in counters}
     peak = torch.cuda.max_memory_allocated()
@@ -1008,7 +1045,8 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     print(
         f"{name}: {segments} segment(s), {tracked} tracked of {consumed} "
         f"frames; {consumed / seconds:.3f} frames/s end to end "
-        f"({seconds:.2f} s); extract {1e3 * stages['extract'] / consumed:.2f} "
+        f"({seconds:.2f} s, {1e3 * untimed_s:.2f} ms of the smoke's own work taken "
+        f"off); extract {1e3 * stages['extract'] / consumed:.2f} "
         f"ms/frame, track {1e3 * stages['track'] / consumed:.2f} ms/frame; "
         f"{len(trackers[0].keyframes)} keyframes, {closures} loop closure(s); "
         f"loop closing's host time {json.dumps(loop_ms)}; "
@@ -2480,6 +2518,20 @@ def train_throughput() -> list:
     return rows
 
 
+def write_inference_inputs(root) -> dict:
+    """The road ride (write_road_ride), the PilotNet checkpoints and their
+    settings JSONs in float32 and bfloat16, under ``root``."""
+    from pilotguru_tpu_torch.formats import json_io
+
+    paths = write_road_ride(os.path.join(root, "road"))
+    checkpoints = write_pilotnet_checkpoints(root)
+    settings = {}
+    for dtype in ("float32", "bfloat16"):
+        settings[dtype] = os.path.join(root, f"settings-{dtype}.json")
+        json_io.write_json({**PILOTNET["settings"], "compute_dtype": dtype}, settings[dtype])
+    return {"root": root, "paths": paths, "checkpoints": checkpoints, "settings": settings}
+
+
 def run_frame_input_phases(root, decoder):
     """The golden mp4 through the VO CLI (where ``decoder`` is not None),
     make_steering_dataset on the road ride, predict_video with the PilotNet
@@ -2493,12 +2545,8 @@ def run_frame_input_phases(root, decoder):
 
     rows = {}
     start = time.perf_counter()
-    paths = write_road_ride(os.path.join(root, "road"))
-    checkpoints = write_pilotnet_checkpoints(root)
-    settings = {}
-    for dtype in ("float32", "bfloat16"):
-        settings[dtype] = os.path.join(root, f"settings-{dtype}.json")
-        json_io.write_json({**PILOTNET["settings"], "compute_dtype": dtype}, settings[dtype])
+    rows["inputs"] = inputs = write_inference_inputs(root)
+    paths, checkpoints, settings = inputs["paths"], inputs["checkpoints"], inputs["settings"]
     rows["inputs_written_s"] = time.perf_counter() - start
     out = {k: os.path.join(root, k) for k in ("golden_card", "golden_cpu", "data_card",
                                               "data_cpu", "train_cpu", "train_card_float32",
@@ -2521,6 +2569,7 @@ def run_frame_input_phases(root, decoder):
         counters = _kernel_counters()
         if decoder:
             rows["golden"], card_path = run_golden_cli(out["golden_card"])
+            rows["golden_card_trajectory"] = card_path
         times = {}
         with _platform("cuda"):
             for c in counters:
@@ -2614,6 +2663,566 @@ def run_frame_input_phases(root, decoder):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Phases 12e to 12j: live inference, the saliency tool, the dense BA oracle,
+# map checkpoints, the VO CLI's visualization and the host tools.
+
+# 12h: phase 7's tracker is saved after this frame and resumed from the file.
+MAP_SAVE_FRAME = 100
+# 12f: the saliency on the card against the CPU, both float32 (TF32 off).
+# A ReLU net's input gradient is constant wherever the same units are
+# active, so the two devices' rounding (forward outputs 7.5e-8 apart)
+# moves it only where a unit's pre-activation sits within rounding of zero
+# and flips: there the map changes by that unit's whole contribution (the
+# first card reading, 6.0e-3 of the map's largest value, PERF.md). The bars
+# hold the RMS of the difference over the RMS of the map, and the share of
+# pixels off by more than 1e-4 of the map's largest value; the largest
+# difference is reported. Each bar sits near the geometric mean of the
+# float32 reading (RMS 6.0e-4, 0.55% of pixels) and the upper reading with
+# TF32 on (RMS 2.8e-2, 56% of pixels; PERF.md), so either side has room of
+# about 7 to 10 times.
+SALIENCY = {"frames": 64, "batch": 8, "rms_share": 4e-3, "pixels_off_share": 5e-2}
+# 12g: tests/test_vo_core.py::test_schur_matches_dense_solver's atol.
+DENSE_BA_BARS = {"poses_abs": 1e-5, "points_abs": 1e-4}
+# 12j: calibrate on board.mp4 against tests/golden/expected/camera_calib.yaml,
+# relative, on every number (cv2's threaded calibrateCamera moves the tenth
+# digit from run to run; the golden came from cv2 5.0, this card's machine
+# has 4.13).
+CALIBRATE_BAR = 1e-6
+
+
+@contextlib.contextmanager
+def capture_parallax_state(map_path):
+    """While phase 7 runs: the arguments of the last bundle_adjust call (the
+    local BA of the ride's last keyframe) and a map checkpoint
+    (vo/map_io.py) written after frame MAP_SAVE_FRAME; a save leaves the run
+    as it is. The save's host time, from a synchronized start (the wait for
+    the device's queued work is "sync_ms"), goes to "seconds", which
+    run_path takes off phase 7's times. Yields the dict that receives
+    them."""
+    import torch
+
+    from pilotguru_tpu_torch.vo import map_io, tracking
+
+    captured = {"seconds": 0.0}
+    adjust = tracking.bundle_adjust
+    process = tracking.MonocularTracker.process_features
+
+    def recording_adjust(problem, **kwargs):
+        captured["ba"] = (problem, kwargs)
+        return adjust(problem, **kwargs)
+
+    def saving_process(self, kp_norm, desc, valid, frame_id, *args, **kwargs):
+        state = process(self, kp_norm, desc, valid, frame_id, *args, **kwargs)
+        if frame_id == MAP_SAVE_FRAME:
+            start = time.perf_counter()
+            torch.cuda.synchronize()
+            synced = time.perf_counter()
+            map_io.save_tracker_map(self, map_path)
+            end = time.perf_counter()
+            captured["seconds"] += end - start
+            captured["map"] = {"path": map_path, "state": state,
+                               "sync_ms": 1e3 * (synced - start),
+                               "save_ms": 1e3 * (end - synced),
+                               "bytes": os.path.getsize(map_path)}
+        return state
+
+    tracking.bundle_adjust = recording_adjust
+    tracking.MonocularTracker.process_features = saving_process
+    try:
+        yield captured
+    finally:
+        tracking.bundle_adjust = adjust
+        tracking.MonocularTracker.process_features = process
+
+
+def _subscriber(address, received, done):
+    """A ZMQ SUB thread on ``address`` that stores every message until
+    ``done`` is set and a receive then times out."""
+    import threading
+
+    import zmq
+
+    ready = threading.Event()
+
+    def run():
+        context = zmq.Context()
+        sub = context.socket(zmq.SUB)
+        sub.setsockopt(zmq.SUBSCRIBE, b"")
+        sub.setsockopt(zmq.RCVTIMEO, 200)
+        sub.connect(address)
+        ready.set()
+        try:
+            while True:
+                try:
+                    received.append(sub.recv_json())
+                except zmq.Again:
+                    if done.is_set():
+                        return
+        finally:
+            sub.close(linger=0)
+            context.term()
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    ready.wait(10)
+    return thread
+
+
+def video_frames_and_shape(path):
+    """(frames, the first frame's shape) of a video, decoded by video/io.py."""
+    from pilotguru_tpu_torch.video.io import read_video_rgb
+
+    count, shape = 0, None
+    for _, frame in read_video_rgb(path):
+        count += 1
+        shape = shape or frame.shape
+    return count, shape
+
+
+def in_order_subsequence(values, reference, atol) -> bool:
+    """Whether ``values`` equal, in order, some entries of ``reference``
+    within ``atol``."""
+    j = 0
+    for v in values:
+        while j < len(reference) and abs(reference[j] - v) > atol:
+            j += 1
+        if j == len(reference):
+            return False
+        j += 1
+    return True
+
+
+def run_predict_live(inputs, reference_json) -> dict:
+    """12e: predict_live on the card over the road ride's PNG list with the
+    PilotNet x3 checkpoints (float32), a ZMQ SUB thread on ipc://: every
+    received value an in-order subsequence of phase 12's float32
+    predict_video steering x 90 within PREDICT_F32_BAR (in steering units)."""
+    import threading
+
+    from pilotguru_tpu_torch.cli import predict_live
+
+    paths, checkpoints = inputs["paths"], inputs["checkpoints"]
+    _, reference = _steering(reference_json)
+    address = f"ipc://{os.path.join(inputs['root'], 'steering-predict')}"
+    received, done = [], threading.Event()
+    thread = _subscriber(address, received, done)
+    counters = _kernel_counters()
+    for c in counters:
+        c.reset()
+    stats = {}
+    try:
+        with _platform("cuda"):
+            rc = predict_live.main([
+                f"--in_video_file={paths['images']}", f"--forward_axis_json={paths['forward']}",
+                f"--net_settings_json={inputs['settings']['float32']}",
+                f"--in_model_weights={','.join(checkpoints)}",
+                f"--steering_prediction_socket={address}", "--convert_to_yuv=1",
+                f"--crop_top={ROAD['crop']['crop_top']}",
+                f"--crop_bottom={ROAD['crop']['crop_bottom']}",
+                f"--max_frames={ROAD['frames']}"], stats=stats)
+    finally:
+        done.set()
+        thread.join(timeout=30)
+    _no_kernel_launches("predict_live", counters)
+    values = np.array([m["s"] for m in received]) / 90.0
+    host_ms = 1e3 * np.asarray(stats["host_seconds"])
+    row = {"frames": stats["frames"], "seconds": stats["seconds"],
+           "frames_per_s": stats["frames"] / stats["seconds"],
+           "messages_received": len(values),
+           "host_ms_read_to_send": {"mean": float(host_ms.mean()),
+                                    "median": float(np.median(host_ms)),
+                                    "p90": float(np.percentile(host_ms, 90)),
+                                    "first": float(host_ms[0])},
+           "bar": PREDICT_F32_BAR}
+    print(f"predict_live on the card (PilotNet x{PILOTNET['nets']}, float32, the road ride): "
+          f"{json.dumps(row)}", flush=True)
+    if not (rc == 0 and stats["frames"] == ROAD["frames"] and len(values)
+            and np.isfinite(values).all()
+            and in_order_subsequence(values, reference, PREDICT_F32_BAR)):
+        raise AssertionError(f"predict_live: the received values are not an in-order "
+                             f"subsequence of predict_video's ({len(values)} received)")
+    return row
+
+
+def road_model_inputs(paths, count):
+    """The first ``count`` road frames as predict_video prepares them:
+    (crops [N, h, w, 3] uint8, model inputs [N, 66, 200, 3] float32)."""
+    from pilotguru_tpu_torch.ml.prediction import frame_to_model_input
+    from pilotguru_tpu_torch.video.io import read_frames_rgb
+
+    crops, images = [], []
+    for _, _, rgb in read_frames_rgb(paths["images"]):
+        model_input, _ = frame_to_model_input(
+            rgb, crop_top=ROAD["crop"]["crop_top"], crop_bottom=ROAD["crop"]["crop_bottom"],
+            target_height=66, target_width=200, convert_to_yuv=True)
+        crops.append(rgb[ROAD["crop"]["crop_top"]:ROAD["height"] - ROAD["crop"]["crop_bottom"]])
+        images.append(model_input[0])
+        if len(images) == count:
+            break
+    return np.stack(crops), np.stack(images)
+
+
+def run_saliency(inputs) -> dict:
+    """12f: the saliency gradient (render_input_pixel_importance.saliency)
+    on the card against the port's CPU on SALIENCY["frames"] road frames at
+    batch SALIENCY["batch"], float32, with the same comparison under TF32
+    and bfloat16 compute printed as the upper readings; then the CLI over
+    the whole ride on the card: seconds, frames/s, peak device memory,
+    frames written."""
+    import torch
+
+    from pilotguru_tpu_torch.cli import render_input_pixel_importance as pixel_importance
+    from pilotguru_tpu_torch.cli.predict_video import load_predictor
+    from pilotguru_tpu_torch.formats import json_io
+
+    paths, checkpoints = inputs["paths"], inputs["checkpoints"]
+    _, images = road_model_inputs(paths, SALIENCY["frames"])
+    axis = torch.from_numpy(json_io.read_forward_axis(paths["forward"]).astype(np.float32))
+
+    def nets_of(compute_dtype, device):
+        settings = {**PILOTNET["settings"], "compute_dtype": compute_dtype}
+        return load_predictor(settings, checkpoints, (66, 200, 3), device).nets
+
+    def maps(nets, device, card_ms=None):
+        """The maps of ``images`` in batches; with ``card_ms``, each batch's
+        card time appended to it."""
+        out = []
+        for start in range(0, len(images), SALIENCY["batch"]):
+            batch = torch.from_numpy(images[start:start + SALIENCY["batch"]]).to(device)
+            if card_ms is None:
+                out.append(pixel_importance.saliency(nets, batch, axis.to(device)).cpu().numpy())
+                continue
+            begin, end = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+            begin.record()
+            grads = pixel_importance.saliency(nets, batch, axis.to(device))
+            end.record()
+            end.synchronize()
+            card_ms.append(begin.elapsed_time(end))
+            out.append(grads.cpu().numpy())
+        return np.concatenate(out)
+
+    counters = _kernel_counters()
+    for c in counters:
+        c.reset()
+    card_ms = []
+    cpu = maps(nets_of("float32", "cpu"), "cpu")
+    card_f32 = nets_of("float32", "cuda")
+
+    def against_cpu(card):
+        diff = np.abs(card - cpu)
+        off = diff > 1e-4 * np.abs(cpu).max()
+        return {"max_of_max": float(diff.max() / np.abs(cpu).max()),
+                "rms_share": float(np.sqrt(np.mean(diff ** 2)) / np.sqrt(np.mean(cpu ** 2))),
+                "pixels_off_share": float(off.mean()),
+                "frames_with_pixels_off": int(off.any(axis=(1, 2)).sum())}
+
+    err = against_cpu(maps(card_f32, "cuda", card_ms))
+    # The upper readings, which the bars sit below: the same comparison with
+    # the card's products rounded further, TF32 on and bfloat16 compute.
+    upper = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        upper["tf32"] = against_cpu(maps(card_f32, "cuda"))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    upper["bfloat16"] = against_cpu(maps(nets_of("bfloat16", "cuda"), "cuda"))
+
+    out = os.path.join(inputs["root"], "saliency.mp4")
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    with _platform("cuda"):
+        rc = pixel_importance.main([
+            f"--in_video={paths['images']}", f"--out_video={out}",
+            f"--forward_axis_json={paths['forward']}",
+            f"--net_settings_json={inputs['settings']['float32']}",
+            f"--in_model_weights={','.join(checkpoints)}", "--convert_to_yuv=1",
+            f"--crop_top={ROAD['crop']['crop_top']}",
+            f"--crop_bottom={ROAD['crop']['crop_bottom']}",
+            f"--batch_size={SALIENCY['batch']}"])
+    seconds = time.perf_counter() - start
+    peak = torch.cuda.max_memory_allocated()
+    _no_kernel_launches("saliency", counters)
+    written, shape = video_frames_and_shape(out)
+    crop_h = ROAD["height"] - ROAD["crop"]["crop_top"] - ROAD["crop"]["crop_bottom"]
+    row = {"frames_compared": len(cpu), "card_against_cpu": err,
+           "upper_readings_against_cpu": upper,
+           "bars": {k: SALIENCY[k] for k in ("rms_share", "pixels_off_share")},
+           "map_max": float(np.abs(cpu).max()),
+           "card_ms_per_batch_median": statistics.median(card_ms),
+           "cli": {"rc": rc, "frames": written, "seconds": seconds,
+                   "frames_per_s": written / seconds, "peak_device_mib": peak / 2**20}}
+    print(f"saliency (PilotNet x{PILOTNET['nets']}, float32, batch {SALIENCY['batch']}): "
+          f"{json.dumps(row)}", flush=True)
+    if not (rc == 0 and err["rms_share"] <= SALIENCY["rms_share"]
+            and err["pixels_off_share"] <= SALIENCY["pixels_off_share"] and row["map_max"] > 0
+            and written == ROAD["frames"] and shape == (crop_h, ROAD["width"], 3)):
+        raise AssertionError(f"saliency: {json.dumps(row)}")
+    return row
+
+
+def run_dense_ba(captured) -> dict:
+    """12g: the BA oracle, bundle_adjust(solver="dense"), on the card in
+    float64, on the local-BA problem of the parallax ride's last keyframe
+    (captured in phase 7), against the Schur path within DENSE_BA_BARS and
+    equal inlier masks; the dense Jacobian's bytes reckoned first, each
+    solve's ms and the dense solve's peak device memory."""
+    import torch
+
+    from pilotguru_tpu_torch.vo import ba
+
+    problem, kwargs = captured["ba"]
+    problem = ba.BAProblem(*(t.to(torch.float64) if t is not None and t.is_floating_point()
+                             else t for t in problem))
+    k, m, o = problem.poses6.shape[0], problem.points.shape[0], problem.obs_valid.shape[0]
+    dim, rows = 6 * k + 3 * m, 2 * o + 7
+    reckoned = {"poses": k, "points": m, "observations": o, "parameters": dim,
+                "residuals": rows, "jacobian_mib": rows * dim * 8 / 2**20,
+                "normal_matrix_mib": dim * dim * 8 / 2**20}
+    print(f"dense BA oracle on the parallax ride's last local BA: {json.dumps(reckoned)}",
+          flush=True)
+    results, ms = {}, {}
+    for solver in ("schur", "dense", "schur", "dense"):  # the second of each is timed
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = time.perf_counter()
+        results[solver] = ba.bundle_adjust(problem, solver=solver, **kwargs)
+        torch.cuda.synchronize()
+        ms[solver] = 1e3 * (time.perf_counter() - start)
+        if solver == "dense":
+            peak = torch.cuda.max_memory_allocated()
+    schur, dense = results["schur"], results["dense"]
+    valid = problem.point_valid
+    row = {**reckoned, "schur_ms": ms["schur"], "dense_ms": ms["dense"],
+           "dense_peak_device_mib": peak / 2**20,
+           "poses_abs": float((schur.poses6 - dense.poses6).abs().max()),
+           "points_abs": float((schur.points - dense.points)[valid].abs().max()),
+           "inliers_differ": int((schur.obs_inliers != dense.obs_inliers).sum()),
+           "inliers": int(schur.obs_inliers.sum()),
+           "losses": [float(schur.final_loss), float(dense.final_loss)], "bars": DENSE_BA_BARS}
+    print(f"dense BA oracle against Schur, card float64: {json.dumps(row)}", flush=True)
+    if not (row["poses_abs"] <= DENSE_BA_BARS["poses_abs"]
+            and row["points_abs"] <= DENSE_BA_BARS["points_abs"] and row["inliers_differ"] == 0):
+        raise AssertionError(f"dense BA oracle: {json.dumps(row)}")
+    return row
+
+
+def run_map_resume(captured, frames_u8, parallax_trajectory, out_dir) -> dict:
+    """12h: a fresh tracker on the card loads the map phase 7 saved after
+    frame MAP_SAVE_FRAME and tracks the rest of the ride: every frame OK,
+    K1 and K2 once a frame, the joined trajectory within TRUTH_BARS; whether
+    it equals the uninterrupted run's is reported."""
+    from pilotguru_tpu_torch.formats.trajectory import read_trajectory, write_trajectory
+    from pilotguru_tpu_torch.vo import map_io, pipeline, tracking
+
+    saved = captured["map"]
+    tracker = pipeline.tracker_from_settings(ride_settings(), device="cuda")
+    start = time.perf_counter()
+    map_io.load_tracker_map(saved["path"], tracker)
+    load_ms = 1e3 * (time.perf_counter() - start)
+    counters = _kernel_counters()
+    for c in counters:
+        c.reset()
+    states = []
+    start = time.perf_counter()
+    for i in range(MAP_SAVE_FRAME + 1, len(frames_u8)):
+        feats = tracker.features(frames_u8[i])
+        states.append(tracker.process_features(*feats[:3], i, int(round(i * 1e6 / 30.0)),
+                                               *feats[3:]))
+    seconds = time.perf_counter() - start
+    launches = {c.name: c.launches for c in counters}
+    tracker.finalize()
+    joined = pipeline.trajectory_from_tracker(tracker)
+    joined = joined and pipeline.postprocess_segment(joined, 0, "cuda")
+    if joined is None:
+        raise AssertionError(f"map checkpoint: no trajectory after resuming ({states})")
+    path = os.path.join(out_dir, "trajectory-resumed.json")
+    write_trajectory(joined, path)
+    traj = read_trajectory(path)
+    errors = trajectory_errors(traj, ride_pose)
+    with open(path, "rb") as a, open(parallax_trajectory, "rb") as b:
+        same = a.read() == b.read()
+    uninterrupted = read_trajectory(parallax_trajectory)
+    row = {"saved_after_frame": MAP_SAVE_FRAME, "map_bytes": saved["bytes"],
+           "save_ms": saved["save_ms"], "sync_before_save_ms": saved["sync_ms"],
+           "load_ms": load_ms, "frames_resumed": len(states),
+           "ok_frames": states.count(tracking.OK), "frames_per_s": len(states) / seconds,
+           "launches": launches, "joined_frames": len(traj), "against_truth": errors,
+           "bars": TRUTH_BARS, "equals_uninterrupted": same,
+           "centre_gap_to_uninterrupted": float(np.abs(
+               traj.translations - uninterrupted.translations).max())
+           if len(traj) == len(uninterrupted) else None}
+    print(f"map checkpoint (phase 7 saved after frame {MAP_SAVE_FRAME}, resumed on the "
+          f"card): {json.dumps(row)}", flush=True)
+    want = {"fast_nms": len(states), "gather_patches": len(states), "gather_blurred_patches": 0}
+    over = {k: v for k, v in TRUTH_BARS.items() if errors[k] > v}
+    if (saved["state"] != tracking.OK or row["ok_frames"] != len(states)
+            or launches != want or len(traj) != len(frames_u8) or over):
+        raise AssertionError(f"map checkpoint: {json.dumps(row)}")
+    return launches, row
+
+
+def run_visualize(root, golden_card_trajectory) -> tuple:
+    """12i: the VO CLI on the golden mp4 with --visualize and
+    --visualize_live_port=0: the trajectory equal to phase 10's to the
+    byte, visualize-0000.mp4 with every frame, /state.json, / and one frame
+    fetched from the tracking loop at frame 60; then
+    --output_per_segment_videos: the segment video holds the OK frames, the
+    JSON's ids index it, and its poses are phase 10's from the first OK
+    frame on. K1 and K2 once a frame in both runs. Returns (launches,
+    row)."""
+    import urllib.request
+
+    from pilotguru_tpu_torch.cli import optical_trajectories
+    from pilotguru_tpu_torch.formats.trajectory import read_trajectory
+    from pilotguru_tpu_torch.vo import viewer
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=10) as response:
+            return response.status, response.headers.get("Content-Type"), response.read()
+
+    fetched = {}
+    publish_state = viewer.LiveViewer.publish_state
+
+    def publish_and_fetch(self, tracker, frame_id, state, inliers):
+        publish_state(self, tracker, frame_id, state, inliers)
+        if frame_id == 60:
+            base = f"http://127.0.0.1:{self.port}"
+            fetched.update(state=get(base + "/state.json"), frame=get(base + "/frame.jpg"),
+                           page=get(base + "/"))
+
+    out = os.path.join(root, "visualize")
+    counters = _kernel_counters()
+    for c in counters:
+        c.reset()
+    viewer.LiveViewer.publish_state = publish_and_fetch
+    start = time.perf_counter()
+    try:
+        with _platform("cuda"):
+            rc = optical_trajectories.main(golden_cli_argv(out) + [
+                "--visualize", "--visualize_live_port=0"])
+    finally:
+        viewer.LiveViewer.publish_state = publish_state
+    seconds = time.perf_counter() - start
+    files = sorted(os.listdir(out))
+    with open(os.path.join(out, "trajectory-0000.json"), "rb") as a, \
+            open(golden_card_trajectory, "rb") as b:
+        same = a.read() == b.read()
+    overlay_frames, _ = video_frames_and_shape(os.path.join(out, "visualize-0000.mp4"))
+    state = json.loads(fetched["state"][2])
+
+    seg_out = os.path.join(root, "segment-videos")
+    with _platform("cuda"):
+        rc_seg = optical_trajectories.main(golden_cli_argv(seg_out) +
+                                           ["--output_per_segment_videos"])
+    launches = {c.name: c.launches for c in counters}  # both runs
+    seg_files = sorted(os.listdir(seg_out))
+    seg = read_trajectory(os.path.join(seg_out, "trajectory-0000.json"))
+    seg_frames, _ = video_frames_and_shape(os.path.join(seg_out, "trajectory-0000.mp4"))
+    # The segment's entries are phase 10's from the first OK frame on.
+    plain = read_trajectory(golden_card_trajectory)
+    tail = slice(len(plain) - len(seg), None)
+    same_poses = (np.array_equal(seg.translations, plain.translations[tail])
+                  and np.array_equal(seg.rotations, plain.rotations[tail])
+                  and np.array_equal(seg.time_usec, plain.time_usec[tail]))
+    n = len(plain)
+    row = {"seconds": seconds, "frames_per_s": n / seconds, "files": files,
+           "overlay_frames": overlay_frames, "trajectory_equals_phase10": same,
+           "launches": launches, "state_at_frame_60": {k: state[k] for k in (
+               "frame_id", "state", "inliers", "map_points", "keyframes")},
+           "frame_jpeg_bytes": len(fetched["frame"][2]),
+           "segment_videos": {"files": seg_files, "segment_video_frames": seg_frames,
+                              "json_entries": len(seg), "first_id": int(seg.frame_id[0]),
+                              "poses_equal_phase10_from_first_ok": same_poses}}
+    print(f"VO CLI visualization on the card: {json.dumps(row)}", flush=True)
+    want = {"fast_nms": 2 * n, "gather_patches": 2 * n, "gather_blurred_patches": 0}
+    if not (rc == 0 and rc_seg == 0 and same and launches == want
+            and files == ["trajectory-0000.json", "visualize-0000.mp4"] and overlay_frames == n
+            and fetched["state"][0] == 200 and state["frame_id"] == 60
+            and fetched["frame"][2][:2] == b"\xff\xd8" and b"stream.mjpg" in fetched["page"][2]
+            and seg_files == ["trajectory-0000.json", "trajectory-0000.mp4"]
+            and np.array_equal(seg.frame_id, np.arange(seg_frames)) and same_poses):
+        raise AssertionError(f"VO CLI visualization: {json.dumps(row)}")
+    return launches, row
+
+
+def run_host_tools(inputs, reference_json) -> dict:
+    """12j: render_frame_numbers and render_motion over the road ride and
+    calibrate on board.mp4, on the card's machine (host only: no kernel
+    runs); calibrate within CALIBRATE_BAR of the golden YAML."""
+    from pilotguru_tpu_torch.cli import calibrate, render_frame_numbers, render_motion
+    from pilotguru_tpu_torch.formats import json_io
+    from pilotguru_tpu_torch.video.png import write_png
+    from pilotguru_tpu_torch.vo.camera import read_camera_settings
+
+    root, paths = inputs["root"], inputs["paths"]
+    ids, steering = _steering(reference_json)
+    json_io.write_json({"velocities": [{"frame_id": int(i), "speed_m_s": float(road_speed(
+        i / ROAD["fps"]))} for i in ids]}, os.path.join(root, "road-velocities.json"))
+    yy, xx = np.mgrid[:64, :64]
+    ring = np.abs(np.hypot(yy - 31.5, xx - 31.5) - 26) < 3
+    wheel = np.zeros((64, 64, 3), np.uint8)
+    wheel[ring] = (200, 200, 200)
+    wheel[28:36, 4:60] = (200, 200, 200)
+    write_png(os.path.join(root, "wheel.png"), wheel)
+    counters = _kernel_counters()
+    for c in counters:
+        c.reset()
+    times, row = {}, {}
+    _run_cli(times, "render_frame_numbers", render_frame_numbers.main, [
+        f"--in_video={paths['images']}", f"--out_video={root}/numbered.mp4",
+        "--frames_to_skip=10", "--max_out_frames=100", "--output_every_n_frames=2"])
+    _run_cli(times, "render_motion", render_motion.main, [
+        f"--in_video={paths['images']}", f"--steering_left_json={reference_json}",
+        f"--velocities_json_left={root}/road-velocities.json",
+        f"--steering_right_json={reference_json}", "--steering_right_scale=45",
+        f"--steering_wheel={root}/wheel.png", f"--out_video={root}/motion.mp4",
+        "--target_video_height=270", "--target_video_width=480", "--max_out_frames=200"])
+    _run_cli(times, "calibrate", calibrate.main, [
+        f"--input={os.path.join(REPO_DIR, 'tests', 'golden', 'inputs', 'board.mp4')}",
+        "--board_side_width=7", "--board_side_height=5", "--square_size=0.03",
+        f"--out_file={root}/camera_calib.yaml"])
+    _no_kernel_launches("host tools", counters)
+    numbered, _ = video_frames_and_shape(f"{root}/numbered.mp4")
+    motion, motion_shape = video_frames_and_shape(f"{root}/motion.mp4")
+    golden_yaml = os.path.join(REPO_DIR, "tests", "golden", "expected", "camera_calib.yaml")
+    got, want = read_camera_settings(f"{root}/camera_calib.yaml"), read_camera_settings(golden_yaml)
+    rel = {k: abs(getattr(got, k) - getattr(want, k)) / max(abs(getattr(want, k)), 1e-12)
+           for k in ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2")}
+    with open(f"{root}/camera_calib.yaml", "rb") as a, open(golden_yaml, "rb") as b:
+        byte_equal = a.read() == b.read()
+    row = {"seconds": times, "numbered_frames": numbered,
+           "motion_frames": motion, "motion_shape": list(motion_shape),
+           "calibrate_relative_to_golden": rel, "calibrate_byte_equal": byte_equal,
+           "bar": CALIBRATE_BAR}
+    print(f"host tools on the card's machine: {json.dumps(row)}", flush=True)
+    if not (numbered == 100 and motion == 200 and motion_shape == (270 + 64, 480, 3)
+            and max(rel.values()) <= CALIBRATE_BAR):
+        raise AssertionError(f"host tools: {json.dumps(row)}")
+    return row
+
+def run_slice_phases(frame_rows, captured, ride, parallax_trajectory, out_dir, decoder):
+    """Phases 12e to 12j. Returns the K1 / K2 / K3 launches of their VO
+    paths (12h, and 12i where a decoder exists) and the rows."""
+    inputs = frame_rows["inputs"]
+    reference = os.path.join(inputs["root"], "predict-card-float32.json")
+    rows, launches = {}, {}
+    rows["predict_live"] = run_predict_live(inputs, reference)
+    rows["saliency"] = run_saliency(inputs)
+    rows["dense_ba"] = run_dense_ba(captured)
+    launches["map_resume"], rows["map_resume"] = run_map_resume(
+        captured, ride, parallax_trajectory, out_dir)
+    if decoder:
+        launches["visualize"], rows["visualize"] = run_visualize(
+            os.path.join(out_dir, "visualize"), frame_rows["golden_card_trajectory"])
+    else:
+        print("no mp4 decoder: the visualization phase is skipped", flush=True)
+    rows["host_tools"] = run_host_tools(inputs, reference)
+    return launches, rows
+
+
 def check_training(out, times, cpu_seconds) -> dict:
     """The train CLI's card runs against the CPU's float32 run (within
     TRAIN_F32_BARS; whether the markers and lr_scale agree is reported) and
@@ -2684,24 +3293,27 @@ def main() -> int:
 
     out_dir = tempfile.mkdtemp(prefix="pg_chip_smoke_")
     try:
-        parallax, parallax_seconds = run_path(
-            "parallax path", ride, os.path.join(out_dir, "parallax"),
-            "blur_then_gather",
-            {"fast_nms": 1, "gather_patches": 1, "gather_blurred_patches": 0},
-            ride_pose, TRUTH_BARS,
-        )
+        with capture_parallax_state(os.path.join(out_dir, "map.npz")) as captured:
+            parallax, parallax_seconds = run_path(
+                "parallax path", ride, os.path.join(out_dir, "parallax"),
+                "blur_then_gather",
+                {"fast_nms": 1, "gather_patches": 1, "gather_blurred_patches": 0},
+                ride_pose, TRUTH_BARS, untimed=captured,
+            )
+        parallax_trajectory = os.path.join(out_dir, "parallax", "trajectory-0000.json")
         loop, _ = run_path(
             "loop ride", loop_ride, os.path.join(out_dir, "loop"), "fused",
             {"fast_nms": 1, "gather_patches": 0, "gather_blurred_patches": 1}, loop_pose,
             LOOP_TRUTH_BARS, period=LOOP_PERIOD, expect_loops=True,
         )
         vo_cli = run_vo_cli_image_list(
-            ride, os.path.join(out_dir, "vo_cli"),
-            os.path.join(out_dir, "parallax", "trajectory-0000.json"), parallax_seconds)
+            ride, os.path.join(out_dir, "vo_cli"), parallax_trajectory, parallax_seconds)
         decoder = mp4_decoder(GOLDEN_VIDEO)
         print(f"mp4 decoder on this machine (video/io.py's routes): {decoder or 'none'}; the "
               f"golden-video phase {'runs' if decoder else 'is skipped'}", flush=True)
-        run_frame_input_phases(os.path.join(out_dir, "frame_input"), decoder)
+        frame_rows = run_frame_input_phases(os.path.join(out_dir, "frame_input"), decoder)
+        slice_launches, _ = run_slice_phases(frame_rows, captured, ride, parallax_trajectory,
+                                             out_dir, decoder)
         run_fit_motion()
         run_corpus()
         run_annotation(os.path.join(out_dir, "parallax", "trajectory-0000.json"))
@@ -2716,7 +3328,8 @@ def main() -> int:
         """``row``: the kernel at the shape the paths give it; ``one_level``:
         its one-level call at level 0, where the paths use the all-level one."""
         launches = {"parallax": parallax[name], "loop": loop[name],
-                    "vo_cli": vo_cli["launches"][name]}
+                    "vo_cli": vo_cli["launches"][name],
+                    **{path: counts[name] for path, counts in slice_launches.items()}}
         out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches.values()), "launches_by_path": launches,

@@ -3,9 +3,12 @@
 Flag-compatible with the reference binary (optical_trajectories.cc:36-62)
 and with pilotguru_tpu.cli.optical_trajectories. --vocabulary_file is
 parsed and validated but its index is unused (exhaustive Hamming matching
-replaces it). --visualize, --output_per_segment_videos and
---visualize_live_port are not ported yet and raise NotImplementedError.
-The device comes from PILOTGURU_TPU_PLATFORM (cpu | cuda, default cuda);
+replaces it). --visualize writes an overlay video per segment (tracked
+features and tracker status) in the place of the reference's live
+Pangolin windows, --output_per_segment_videos a video of each segment's
+tracked frames, and --visualize_live_port serves the live view over HTTP
+(vo/viewer.py); these three draw and encode with cv2 and do not run where
+cv2 is missing. The device comes from PILOTGURU_TPU_PLATFORM (cpu | cuda, default cuda);
 PGTPU_PATCH_IMPL=fused selects the fused blur + patch-gather kernel, as in
 the reference. The tracker runs the reference CLI's configuration (loop
 closing on, global BA after a closure) except chunking: frames track one
@@ -36,12 +39,21 @@ def main(argv=None):
     parser.add_argument("--out_dir", required=True)
     parser.add_argument("--vertical_flip", action="store_true")
     parser.add_argument("--horizontal_flip", action="store_true")
-    parser.add_argument("--visualize", action="store_true",
-                        help="Not ported yet (raises).")
-    parser.add_argument("--output_per_segment_videos", action="store_true",
-                        help="Not ported yet (raises).")
-    parser.add_argument("--visualize_live_port", type=int, default=None,
-                        help="Not ported yet (raises).")
+    parser.add_argument(
+        "--visualize", action="store_true",
+        help="Write a visualize-NNNN.mp4 overlay video per segment (tracked features "
+             "and tracker status; optical_trajectories.cc:47).",
+    )
+    parser.add_argument(
+        "--output_per_segment_videos", action="store_true",
+        help="Write trajectory-NNNN.mp4 per tracked segment; the JSON's frame ids then "
+             "index the segment video (optical_trajectories.cc:53-57).",
+    )
+    parser.add_argument(
+        "--visualize_live_port", type=int, default=None,
+        help="Serve the live tracking view over HTTP (MJPEG overlay stream and map, "
+             "vo/viewer.py); 0 binds a free port, printed at the start.",
+    )
     parser.add_argument("--rotation_smooth_sigma", type=int, default=0)
     parser.add_argument(
         "--image_scale",

@@ -9,10 +9,16 @@ The routes, in order, none of which needs cv2 but the last:
 3. a video file through cv2.VideoCapture, imported inside the call.
 
 When no route can open the input, the error names the routes tried.
+
+Writing a video (``VideoWriterRgb``) needs cv2, imported in the call: the
+tools that draw or encode (render_*, predict_live's --log_dir, the VO
+CLI's videos) do not run where cv2 is missing, and ``require_cv2`` makes
+them say so before any work starts.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import os
 from typing import Iterator, Tuple
 
@@ -160,3 +166,48 @@ def is_image_list(path: str) -> bool:
     if os.path.isdir(path):
         return os.path.exists(os.path.join(path, "rgb.txt"))
     return path.endswith(".txt")
+
+
+def require_cv2(tool: str) -> None:
+    """Raise, naming ``tool``, when cv2 cannot be imported (checked without
+    importing it)."""
+    if importlib.util.find_spec("cv2") is None:
+        raise RuntimeError(
+            f"{tool} needs cv2 (OpenCV's Python package) to draw, encode or "
+            "calibrate, and it is not installed"
+        )
+
+
+class VideoWriterRgb:
+    """mp4v sink for RGB frames, opened at the first frame like the
+    reference's ImageSequenceVideoFileSink (image_sequence_writer.cc:26-87);
+    the JAX package's class of the same name. Does not run where cv2 is
+    missing."""
+
+    def __init__(self, path: str, fps: float = 30.0):
+        self._path = path
+        self._fps = fps
+        self._writer = None
+
+    def consume(self, rgb_frame: np.ndarray) -> None:
+        import cv2
+
+        if self._writer is None:
+            h, w = rgb_frame.shape[:2]
+            self._writer = cv2.VideoWriter(
+                self._path, cv2.VideoWriter_fourcc(*"mp4v"), self._fps, (w, h))
+            if not self._writer.isOpened():
+                raise ValueError(f"cannot open video writer for {self._path}")
+        self._writer.write(cv2.cvtColor(np.ascontiguousarray(rgb_frame),
+                                        cv2.COLOR_RGB2BGR))
+
+    def close(self) -> None:
+        if self._writer is not None:
+            self._writer.release()
+            self._writer = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *_):
+        self.close()

@@ -1452,15 +1452,22 @@ class MonocularTracker:
         Tracking-vs-LocalMapping lag."""
         if self._pending_ba is None:
             return
-        result, window, pids = self._pending_ba
+        window, new_poses, pids, new_points = self.pending_ba_update()
         self._pending_ba = None
+        for kf, pose in zip(window, new_poses):
+            kf.pose6 = pose
+        self.points[pids] = new_points
+        self._invalidate_device_map()
+
+    def pending_ba_update(self):
+        """What a deferred local BA changes, without applying it: (window
+        keyframes, their new poses [W, 6], the arena ids of its points that
+        are still valid, their new positions [P, 3]), host float64."""
+        result, window, pids = self._pending_ba
         new_poses = result.poses6.cpu().numpy().astype(np.float64)
-        for ki, kf in enumerate(window):
-            kf.pose6 = new_poses[ki]
         live = self.point_valid[pids]
         new_points = result.points.cpu().numpy().astype(np.float64)[: len(pids)]
-        self.points[pids[live]] = new_points[live]
-        self._invalidate_device_map()
+        return window, new_poses[: len(window)], pids[live], new_points[live]
 
     # ---------------------------------------------------------- loop closing
     def _loop_preconditions(self, kf: Keyframe) -> bool:

@@ -1,6 +1,7 @@
 """The PyTorch port imports torch and never jax, and no module of the JAX
 package pilotguru_tpu (not even one free of JAX); cv2 only inside the
-last-resort routes of its frame input (CV2_FUNCTIONS). Its trajectory files
+functions named in CV2_FUNCTIONS: the last-resort routes of its frame
+input, and the calls that draw, encode or calibrate. Its trajectory files
 are byte-identical to the JAX package's."""
 
 import ast
@@ -57,7 +58,14 @@ def test_port_imports_neither_jax_nor_cv2():
             "pilotguru_tpu_torch.cli.make_steering_dataset", "pilotguru_tpu_torch.ml.data",
             "pilotguru_tpu_torch.ml.weighting", "pilotguru_tpu_torch.ml.augmentation",
             "pilotguru_tpu_torch.ml.folded", "pilotguru_tpu_torch.cli.train",
-            "pilotguru_tpu_torch.cli.hyperparams_search"} <= set(mods)
+            "pilotguru_tpu_torch.cli.hyperparams_search",
+            "pilotguru_tpu_torch.utils.latest_value", "pilotguru_tpu_torch.utils.kahan",
+            "pilotguru_tpu_torch.cli.predict_live", "pilotguru_tpu_torch.video.render",
+            "pilotguru_tpu_torch.cli.render_motion",
+            "pilotguru_tpu_torch.cli.render_frame_numbers",
+            "pilotguru_tpu_torch.cli.render_input_pixel_importance",
+            "pilotguru_tpu_torch.cli.calibrate", "pilotguru_tpu_torch.vo.map_io",
+            "pilotguru_tpu_torch.vo.viewer"} <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -76,13 +84,42 @@ def test_port_imports_neither_jax_nor_cv2():
 
 # The only functions of the port that import cv2: the last routes of frame
 # input (an image that is not a PNG, a video without the native reader) and
-# INTER_AREA upscaling, which video/imgproc.py does not reproduce.
+# INTER_AREA upscaling, which video/imgproc.py does not reproduce; then the
+# calls that draw, encode or calibrate, as the JAX package's: writing a
+# video, the render tools, predict_live's capture device and preview, the
+# saliency overlay, calibrate, and the VO pipeline's overlay and live view
+# (taken only with --visualize, --output_per_segment_videos or
+# --visualize_live_port).
 CV2_FUNCTIONS = {
     ("pilotguru_tpu_torch/video/io.py", "_read_image_rgb"),
     ("pilotguru_tpu_torch/video/io.py", "_read_video_cv2"),
     ("pilotguru_tpu_torch/video/io.py", "read_frames_rgb"),
     ("pilotguru_tpu_torch/video/imgproc.py", "_upscale_with_cv2"),
+    ("pilotguru_tpu_torch/video/io.py", "consume"),  # VideoWriterRgb
+    ("pilotguru_tpu_torch/video/render.py", "render_steering"),
+    ("pilotguru_tpu_torch/video/render.py", "render_velocity"),
+    ("pilotguru_tpu_torch/video/render.py", "render_frame_number"),
+    ("pilotguru_tpu_torch/cli/render_motion.py", "main"),
+    ("pilotguru_tpu_torch/cli/predict_live.py", "_capture_into"),
+    ("pilotguru_tpu_torch/cli/predict_live.py", "_show_preview"),
+    ("pilotguru_tpu_torch/cli/predict_live.py", "_close_preview"),
+    ("pilotguru_tpu_torch/cli/render_input_pixel_importance.py", "overlay"),
+    ("pilotguru_tpu_torch/cli/calibrate.py", "detect_pattern"),
+    ("pilotguru_tpu_torch/cli/calibrate.py", "main"),
+    ("pilotguru_tpu_torch/vo/pipeline.py", "_overlay_frame"),
+    ("pilotguru_tpu_torch/vo/viewer.py", "publish_frame"),
 }
+
+# The VO, dataset, inference and training paths: modules whose functions
+# import no cv2 except the visualization pair above.
+CV2_FREE_PATHS = ("pilotguru_tpu_torch/vo/", "pilotguru_tpu_torch/ml/",
+                  "pilotguru_tpu_torch/cli/optical_trajectories.py",
+                  "pilotguru_tpu_torch/cli/make_steering_dataset.py",
+                  "pilotguru_tpu_torch/cli/predict_video.py",
+                  "pilotguru_tpu_torch/cli/train.py",
+                  "pilotguru_tpu_torch/cli/hyperparams_search.py")
+VISUALIZATION_ONLY = {("pilotguru_tpu_torch/vo/pipeline.py", "_overlay_frame"),
+                      ("pilotguru_tpu_torch/vo/viewer.py", "publish_frame")}
 
 
 def _imports_cv2(node) -> bool:
@@ -93,9 +130,9 @@ def _imports_cv2(node) -> bool:
 
 
 def test_cv2_only_in_the_last_resort_functions():
-    """No module imports cv2 at module level, and on the frame-input,
-    dataset and inference paths only CV2_FUNCTIONS import it at all;
-    chip_smoke.py does not."""
+    """No module imports cv2 at module level, only CV2_FUNCTIONS import it
+    at all, the VO, dataset, inference and training paths none but the
+    visualization pair; chip_smoke.py does not."""
     found = set()
     for dirpath, _, files in os.walk(os.path.join(REPO, "pilotguru_tpu_torch")):
         for name in files:
@@ -113,6 +150,7 @@ def test_cv2_only_in_the_last_resort_functions():
                         _imports_cv2(stmt) for stmt in node.body):
                     found.add((rel, node.name))
     assert found == CV2_FUNCTIONS
+    assert {f for f in found if f[0].startswith(CV2_FREE_PATHS)} == VISUALIZATION_ONLY
     with open(os.path.join(REPO, "chip_smoke.py")) as f:
         assert not _imports_cv2(ast.parse(f.read()))
 

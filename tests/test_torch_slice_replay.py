@@ -15,6 +15,13 @@ Measured: per-frame rotation max 0.033 degrees (mean 0.002), camera-centre
 RMSE after Sim(3) alignment 0.014% of the path length, plane normal 0.012
 degrees; no loop closes on either side.
 
+Both runs decode the mp4 through cv2 (``decode_through_cv2``): the native
+libav reader's pts and cv2's truncated CAP_PROP_POS_MSEC differ by 1 us on
+41 of the 120 frames, and tests/test_native_video.py may build the native
+library between the two runs, which would split their frame times. With
+the route pinned the times are equal, whether or not the library exists
+(tests/test_torch_slice.py holds them to the golden's within 1 us).
+
 The golden trajectory (tests/golden/expected/vo) came from the JAX CLI's
 chunked path, whose draws differ again: against it the JAX per-frame run
 reads 1.402 degrees worst rotation and the port's replayed run 1.403.
@@ -32,11 +39,13 @@ import pytest
 import torch
 
 from pilotguru_tpu.formats.trajectory import read_trajectory
+from pilotguru_tpu.video import native as jax_native_video
 from pilotguru_tpu.vo import features as jfeatures
 from pilotguru_tpu.vo import pipeline as jpipeline
 from pilotguru_tpu.vo import tracking as jtracking
 from pilotguru_tpu.vo.camera import read_camera_settings as jax_read_camera_settings
 from pilotguru_tpu_torch.cli import optical_trajectories
+from pilotguru_tpu_torch.video import native as native_video
 from pilotguru_tpu_torch.vo import pipeline, sim3, tracking, twoview
 
 torch.set_num_threads(1)
@@ -53,6 +62,13 @@ def _replay(key, weights, size, count):
     return torch.from_numpy(np.array(jax.vmap(
         lambda k: jax.random.choice(k, n, shape=(size,), replace=False, p=p)
     )(keys)))
+
+
+def decode_through_cv2(mp):
+    """Both packages decode the mp4 through cv2, whether or not the native
+    libav reader is built (module docstring)."""
+    mp.setattr(native_video, "available", lambda: False)
+    mp.setattr(jax_native_video, "available", lambda: False)
 
 
 def _fresh_jax_features(tracker):
@@ -89,6 +105,7 @@ def jax_per_frame_run(out_dir, environment=None, two_view_log=None):
     settings = jax_read_camera_settings(f"{INPUTS}/camera.yaml")
     trackers = []
     mp = pytest.MonkeyPatch()
+    decode_through_cv2(mp)
     if two_view_log is not None:
         solve = jtracking._two_view
 
@@ -180,6 +197,7 @@ def port_replayed_run(out_dir, environment=None, two_view_dtype=None, two_view_l
         return trackers[-1]
 
     mp = pytest.MonkeyPatch()
+    decode_through_cv2(mp)
     mp.setattr(tracking, "two_view_reconstruction", replayed_two_view)
     mp.setattr(tracking, "relocalize", replayed_relocalize)
     mp.setattr(sim3, "ransac_umeyama", replayed_ransac_umeyama)
