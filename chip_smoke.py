@@ -23,26 +23,40 @@ Phases (each raises on failure, so the script exits non-zero):
      (a float32 tie, PERF.md);
   7. the parallax path: optical_trajectories' segment loop
      (pilotguru_tpu_torch.vo.pipeline.track_video_segments) with the default
-     configuration (loop closing on, blur-then-gather) on a 150-frame
+     tracker configuration (loop closing on, blur-then-gather) but frame by
+     frame (features extracted inline, track_chunk_frames=0) on a 150-frame
      1280x720 synthetic ride at 2000 features / 8 levels; every frame in one
      segment, no loop closed (the ride never revisits a place), K1 and K2
      launched once a frame each, K3 never, and the trajectory within
      TRUTH_BARS of the ride's true poses;
-  8. the loop ride: the same segment loop with PGTPU_PATCH_IMPL=fused's
-     configuration on a 318-frame closed-circuit 1280x720 ride whose last
+  8. the loop ride: the same segment loop, frame by frame, with
+     PGTPU_PATCH_IMPL=fused's configuration on a 318-frame closed-circuit
+     1280x720 ride whose last
      30 frames revisit its start; every frame in one segment, at least one
      loop closed, K1 and K3 launched once a frame each, K2 never, and the
      trajectory within LOOP_TRUTH_BARS, the end-to-start closure error
      among them;
-  9. the optical_trajectories CLI (its main, with its flags) over the
-     parallax ride written as a gray PNG image list with rgb.txt and a
-     settings YAML written by vo/camera.py, in a child process where cv2
-     cannot be imported (run_vo_cli_image_list): the trajectory equal to
-     phase 7's to the byte, K1 and K2 once a frame, frames/s beside phase
-     7's;
+ 7c. both rides through the segment loop at its defaults, the CLI's
+     configuration (run_default_parallax, run_default_loop): frames decoded
+     on a thread, features prefetched in batches of 8 on a worker thread,
+     chunks of 16 tracked through keyframes; phases 7's and 8's checks and
+     bars (the loop ride with float64 geometry: run_default_loop says
+     why); frames/s beside phases 7 and 8, chunks, frames consumed a chunk,
+     frames re-fed, the wait for prefetched features, peak memory, and the
+     parallax ride's device idle share over the chunks from frame 60 to 68
+     (torch.profiler, whose window is left out of the frames/s);
+  9. the optical_trajectories CLI (its main, with its flags, at its
+     defaults) over the parallax ride written as a gray PNG image list with
+     rgb.txt and a settings YAML written by vo/camera.py, in a child process
+     where cv2 cannot be imported (run_vo_cli_image_list): the trajectory
+     equal to phase 7c's parallax trajectory to the byte, K1 and K2 once a
+     frame, frames/s beside phase 7c's;
  10. the CLI on the golden mp4 (run_golden_cli), when video/io.py finds a
-     decoder on this machine (mp4_decoder): within SLICE_BARS of the golden
-     trajectory and of the port's CPU run on the same frames;
+     decoder on this machine (mp4_decoder): at its defaults, chunked, within
+     SLICE_BARS of the golden trajectory; frame by frame within SLICE_BARS
+     of the golden and of the port's CPU run frame by frame on the same
+     frames (chunked, the card's float32 and the CPU's float64 runs make
+     other keyframe decisions);
  11. make_steering_dataset on a 600-frame 640x360 road ride (render_road,
      an RGB PNG image list, tests/synthetic.py-shaped JSONs) to 66x200 YUV,
      on the card and on the CPU: every npz array and PNG equal; seconds
@@ -59,7 +73,8 @@ Phases (each raises on failure, so the script exits non-zero):
      and bfloat16 and on the CPU in float32 (check_training): the card's
      float32 per-epoch per-net losses and last checkpoints within
      TRAIN_F32_BARS of the CPU's (this training amplifies rounding; the
-     first step alone within TRAIN_STEP_BARS); bfloat16 finite, falling and
+     first step alone within TRAIN_STEP_BARS); a second float32 run on the
+     card equal to the first to the bit; bfloat16 finite, falling and
      within TRAIN_BF16_BAR of float32;
  12b. predict_video over the road ride with the checkpoints the card's
      float32 run wrote (dataset -> train -> predict on the card): finite,
@@ -132,10 +147,21 @@ Phases (each raises on failure, so the script exits non-zero):
      its grid and a copy of its bytes;
  17. one JSON line with every kernel at the shape the paths give it (all 8
      levels of a 720p frame in one launch): launches
-     on the paths (phases 7, 8, 9, 12h and 12i), error against the plain version,
+     on the paths (phases 7, 8, 7c, 9, 12h and 12i), error against the plain version,
      device ms, plain ms, the card's bound, a library call's ms where one
      exists; then, last, one JSON object
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+
+Order: phases 1 to 6, phase 7 and 7c's parallax ride have the card
+alone (their frames/s are the pair compared). Then five lanes, each a
+spawned process (Lane), run beside the main process: phase 8; 7c's loop
+ride; phase 9 and phase 10's frame-by-frame golden run; phase 10's golden
+run at the CLI's defaults and 12i; phases 13 to 15. Phase 10's CPU run is
+a child process beside them, and the main process runs phases 11 to 12c
+and 12e to 12h and 12j. Every lane's result is awaited (a lane that
+raised fails the smoke), then 12d, the forward-pass timings of phase 12
+and phase 16 run alone. The times printed inside the lanes and beside them
+share the host and the card.
 
 Imports nothing of JAX and nothing of the JAX package. Exits non-zero
 without printing a result when no CUDA device is present.
@@ -358,6 +384,7 @@ def trajectory_errors(traj, pose_of=ride_pose, period=None) -> dict:
     cos = abs(normal[1]) / np.linalg.norm(normal)
     errors = {
         "rotation_max_deg": float(max(rot_err)),
+        "rotation_max_frame": int(ids[int(np.argmax(rot_err))]),
         "rotation_mean_deg": float(np.mean(rot_err)),
         "centre_rmse_of_path": float(rmse / length),
         "normal_deg": float(np.degrees(np.arccos(min(cos, 1.0)))),
@@ -938,18 +965,94 @@ class _StepClock:
             setattr(owner, attr, fn)
 
 
+class _ProfileWindow:
+    """torch.profiler (CUDA activity) over the chunks that start at frame
+    ids in [first, last), from a synchronized start to a synchronized
+    stop: the device's busy time there, kernels and copies of every thread
+    (the prefetch worker's extraction too), against the host's wall time.
+    ``spent`` is the window's whole cost to the run, the profiler's start
+    and stop included, which the run's frames/s leaves out."""
+
+    def __init__(self, frames):
+        self.first, self.last = frames
+        self.profiler = None
+        self.opened = self.start = self.wall = self.spent = None
+        self.frame_span = None
+
+    def hook(self, clock, tracker_class):
+        chunk = tracker_class.process_chunk
+        window = self
+
+        def windowed(tracker, frames):
+            window.at(frames[0].frame_id)
+            return chunk(tracker, frames)
+
+        tracker_class.process_chunk = windowed
+        clock._undo.append((tracker_class, "process_chunk", chunk))
+
+    def at(self, frame_id):
+        import torch
+
+        if self.profiler is None and self.start is None and frame_id >= self.first:
+            self.opened = time.perf_counter()
+            torch.cuda.synchronize()
+            self.profiler = torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA])
+            self.profiler.start()
+            self.start, self.frame_span = time.perf_counter(), [frame_id, None]
+        elif self.profiler is not None and self.wall is None and frame_id >= self.last:
+            self._stop(frame_id)
+
+    def _stop(self, frame_id):
+        import torch
+
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - self.start
+        self.profiler.stop()
+        self.spent = time.perf_counter() - self.opened
+        self.frame_span[1] = frame_id
+
+    def close(self):
+        if self.profiler is not None and self.wall is None:
+            raise AssertionError(f"profile window {self.first}..{self.last}: the ride "
+                                 "ended inside it")
+
+    def row(self) -> dict:
+        import torch
+
+        if self.wall is None:
+            raise AssertionError(f"profile window {self.first}..{self.last}: never opened")
+        busy_us = sum(e.device_time_total for e in self.profiler.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        frames = self.frame_span[1] - self.frame_span[0]
+        return {"frames": frames, "first": self.frame_span[0], "wall_s": self.wall,
+                "spent_s": self.spent, "device_busy_ms": busy_us / 1e3,
+                "idle_share": 1.0 - busy_us / 1e6 / self.wall}
+
+
 def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
-             pose_of, bars, period=None, expect_loops=False, untimed=None):
+             pose_of, bars, period=None, expect_loops=False, untimed=None,
+             per_frame=True, profile_window=None, dtype=None):
     """Drive optical_trajectories' segment loop over ``frames_u8`` on CUDA
     at 2000 features / 8 levels, with the kernel counts set to 0 just before
-    and read just after. Checks: every frame in one segment, each kernel
-    launched ``launches_per_frame[kernel]`` times a frame (0: not at all),
-    no plain version on a CUDA tensor, loop closures (at least one
-    with ``expect_loops``, else none) and the written trajectory within
-    ``bars`` of the true poses. ``untimed``: a dict whose "seconds" the
-    smoke's own instrumentation spent inside the run (phase 7's map save,
+    and read just after. ``per_frame``: features extracted inline and frames
+    tracked one at a time (``feature_batch_size=0``, a tracker with
+    ``track_chunk_frames=0``), else the loop's defaults, the CLI's: decode
+    and feature prefetch threads, chunks of 16 through keyframes. Checks:
+    every frame in one segment, each kernel launched
+    ``launches_per_frame[kernel]`` times a frame (0: not at all), no plain
+    version on a CUDA tensor, loop closures (at least one with
+    ``expect_loops``, else none) and the written trajectory within ``bars``
+    of the true poses. ``untimed``: a dict whose "seconds" the smoke's own
+    instrumentation spent inside the run (phase 7's map save,
     capture_parallax_state), taken off the run's seconds and its track
-    stage. Returns (the launch counts, the seconds)."""
+    stage. ``profile_window``: (first, last) frame ids; the chunks that
+    start in [first, last) run under torch.profiler (CUDA activity), whose
+    device busy time gives the device's idle share there; the window's
+    frames and its whole time, the profiler's start and stop included, are
+    taken off the run's seconds and frames/s. Returns (the launch counts,
+    the seconds, the row). ``dtype``: the trackers' geometry dtype (None:
+    the card's default, float32)."""
     import torch
 
     from pilotguru_tpu_torch.formats.trajectory import read_trajectory
@@ -975,12 +1078,21 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
         return trackers[-1]
 
     pipeline.tracker_from_settings = recording_tracker_from_settings
+    if per_frame:
+        loop_options = {"feature_batch_size": 0, "make_tracker": lambda: (
+            pipeline.tracker_from_settings(settings, device="cuda", dtype=dtype,
+                                           patch_impl=patch_impl, track_chunk_frames=0))}
+    else:
+        loop_options = {}
+    window = _ProfileWindow(profile_window) if profile_window else None
     clock = _StepClock()
     clock.wrap(loopclosing, "start_vote_sweep", "vote sweep dispatch")
     clock.wrap(loopclosing, "detect_candidate", "vote read + candidate")
     clock.wrap(loopclosing, "relative_sim3", "sim3 fit")
     clock.wrap(posegraph, "optimize_pose_graph", "pose graph")
     clock.wrap(tracking.MonocularTracker, "_global_bundle_adjust", "global BA")
+    if window is not None:
+        window.hook(clock, tracking.MonocularTracker)
     stages: dict = {}
     torch.cuda.reset_peak_memory_stats()
     for c in counters:
@@ -988,16 +1100,23 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     start = time.perf_counter()
     try:
         segments, consumed = pipeline.track_video_segments(
-            frames, settings, out_dir, device="cuda", stage_seconds=stages,
-            patch_impl=patch_impl,
+            frames, settings, out_dir, device="cuda", dtype=dtype, stage_seconds=stages,
+            patch_impl=patch_impl, **loop_options,
         )
         torch.cuda.synchronize()
     finally:
         pipeline.tracker_from_settings = make
         clock.restore()
+        if window is not None:
+            window.close()
     untimed_s = untimed["seconds"] if untimed else 0.0
     seconds = time.perf_counter() - start - untimed_s
     stages["track"] -= untimed_s
+    timed_frames = consumed
+    if window is not None:
+        profiled = window.row()
+        seconds -= profiled["spent_s"]
+        timed_frames -= profiled["frames"]
     launches = {c.name: c.launches for c in counters}
     plain_calls = {c.name: c.plain_cuda_calls for c in counters}
     peak = torch.cuda.max_memory_allocated()
@@ -1007,15 +1126,19 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     if set(launches_per_frame) != set(launches):
         raise AssertionError(f"{name}: no expected launch count for some kernel of "
                              f"{sorted(launches)}")
-    for kernel, per_frame in launches_per_frame.items():
-        if launches[kernel] != per_frame * consumed:
+    for kernel, a_frame in launches_per_frame.items():
+        if launches[kernel] != a_frame * consumed:
             raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} times, "
-                                 f"want {per_frame} x {consumed} = {per_frame * consumed}")
+                                 f"want {a_frame} x {consumed} = {a_frame * consumed}")
     if any(plain_calls.values()):
         raise AssertionError(f"{name}: plain versions ran on CUDA tensors: {plain_calls}")
     if segments != 1 or len(trackers) != 1:
         raise AssertionError(f"{name}: wrote {segments} segments with {len(trackers)} "
                              "trackers, want 1")
+    chunk_size = trackers[0].config.track_chunk_frames
+    if (chunk_size == 0) != per_frame or (stages["chunks"] == 0) != per_frame:
+        raise AssertionError(f"{name}: {stages['chunks']} chunks with track_chunk_frames "
+                             f"{chunk_size}, want {'none' if per_frame else 'some'}")
     closures = trackers[0].stats["loop_closures"]
     if expect_loops != (closures > 0):
         raise AssertionError(f"{name}: {closures} loop closures, want "
@@ -1041,20 +1164,43 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     if over:
         raise AssertionError(f"{name}: trajectory off the true poses: {over}")
     loop_ms = {k: {"ms": round(ms, 2), "calls": calls}
-               for k, (ms, calls) in clock.totals.items()}
+               for k, (ms, calls) in clock.totals.items() if k != "chunk"}
+    row = {"frames": consumed, "dtype": str(trackers[0].dtype).split(".")[-1],
+           "seconds": seconds, "frames_per_s": timed_frames / seconds,
+           "extract_ms_per_frame": 1e3 * stages["extract"] / consumed,
+           "track_ms_per_frame": 1e3 * stages["track"] / consumed,
+           "keyframes": len(trackers[0].keyframes), "loop_closures": closures,
+           "peak_mib": peak / 2**20, "launches": launches, "against_truth": errors}
+    if not per_frame:
+        row.update(chunks=stages["chunks"], chunk_frames=stages["chunk_frames"],
+                   frames_per_chunk=stages["chunk_frames"] / stages["chunks"],
+                   refed=stages["refed"])
+    if window is not None:
+        row["profiled"] = profiled
     print(
         f"{name}: {segments} segment(s), {tracked} tracked of {consumed} "
-        f"frames; {consumed / seconds:.3f} frames/s end to end "
-        f"({seconds:.2f} s, {1e3 * untimed_s:.2f} ms of the smoke's own work taken "
-        f"off); extract {1e3 * stages['extract'] / consumed:.2f} "
-        f"ms/frame, track {1e3 * stages['track'] / consumed:.2f} ms/frame; "
+        f"frames; {row['frames_per_s']:.3f} frames/s end to end "
+        f"({seconds:.2f} s for {timed_frames} frames, {1e3 * untimed_s:.2f} ms of the smoke's "
+        f"own work taken off"
+        + (f", and the profiled window's {profiled['frames']} frames and "
+           f"{profiled['spent_s']:.2f} s" if window is not None else "")
+        + f"); {'extract' if per_frame else 'wait for prefetched features'} "
+        f"{row['extract_ms_per_frame']:.2f} ms/frame, track "
+        f"{row['track_ms_per_frame']:.2f} ms/frame"
+        + (" (stage times with the profiled window in them)" if window is not None else "")
+        + "; "
         f"{len(trackers[0].keyframes)} keyframes, {closures} loop closure(s); "
         f"loop closing's host time {json.dumps(loop_ms)}; "
         f"peak device memory {peak / 2**20:.1f} MiB; launches {launches}, "
         f"plain calls on CUDA {plain_calls}",
         flush=True,
     )
-    return launches, seconds
+    if not per_frame:
+        print(f"{name}: chunks {row['chunks']}, frames consumed a chunk "
+              f"{row['frames_per_chunk']:.2f}, frames re-fed {row['refed']}"
+              + (f"; profiled window {json.dumps(row['profiled'])}" if window else ""),
+              flush=True)
+    return launches, seconds, row
 
 
 # White sensor noise of a seeded make_imu_ride (standard deviations).
@@ -1337,7 +1483,8 @@ def run_seed_guard(frames_u8):
     from pilotguru_tpu_torch.vo import pipeline, tracking
 
     frames = frames_u8[:SEED_GUARD["frames"]]
-    tracker = pipeline.tracker_from_settings(ride_settings(), device="cuda")
+    tracker = pipeline.tracker_from_settings(ride_settings(), device="cuda",
+                                             track_chunk_frames=0)
     tracker._generator.manual_seed(SEED_GUARD["seed"])
     counters = _kernel_counters()
     for c in counters:
@@ -1821,6 +1968,151 @@ def run_annotation(parallax_trajectory):
     return rows
 
 
+PARALLAX_LAUNCHES = {"fast_nms": 1, "gather_patches": 1, "gather_blurred_patches": 0}
+LOOP_LAUNCHES = {"fast_nms": 1, "gather_patches": 0, "gather_blurred_patches": 1}
+# 7c: frames of the parallax ride whose chunks run under torch.profiler
+# (reading its events back takes about 3 s a frame on the card's host).
+CHUNKED_PROFILE_WINDOW = (60, 68)
+
+
+def run_default_parallax(ride, out_dir, parallax_row) -> dict:
+    """7c, the parallax ride: the segment loop at its defaults, the CLI's
+    configuration (frames decoded on a thread, features prefetched in
+    batches of 8 on a worker thread, chunks of 16 tracked through
+    keyframes), with run_path's checks: one segment and one tracker, each
+    kernel once a frame, no plain version on a CUDA tensor, no loop closed,
+    TRUTH_BARS. Runs alone on the card, as phase 7 does, and prints its
+    frames/s beside phase 7's. Returns the row with its trajectory's path."""
+    row = run_path(
+        "parallax path, chunked with prefetch", ride, os.path.join(out_dir, "parallax_chunked"),
+        "blur_then_gather", PARALLAX_LAUNCHES, ride_pose, TRUTH_BARS, per_frame=False,
+        profile_window=CHUNKED_PROFILE_WINDOW)[2]
+    row["trajectory"] = os.path.join(out_dir, "parallax_chunked", "trajectory-0000.json")
+    print_default_against_per_frame("parallax", row, parallax_row, 7, "alone on the card")
+    return row
+
+
+def run_default_loop(loop_ride, out_dir):
+    """7c, the loop ride: the segment loop at its defaults with float64
+    geometry (fused: K1 and K3 through the prefetcher), run_path's checks,
+    at least one loop closed, LOOP_TRUTH_BARS. Returns run_path's result.
+
+    The extraction and its kernels are float32 either way. In float32 the
+    ride reads 0.9045 degrees worst rotation at frame 15 on an H100, over
+    LOOP_TRUTH_BARS' 0.9, which were set over frame-by-frame runs: there
+    the chunk dispatched at frame 6 stops at frame 15 on a one-inlier tie
+    at the keyframe-ratio threshold and tracks frames 15 to 19 on the map
+    of frame 12's keyframe, which carries 0.7 to 0.9 degrees on the card in
+    float32 frame by frame as well (ride_seeds.py --log; PERF.md,
+    ROADMAP.md Queue 3). The bars stay as they are."""
+    import torch
+
+    return run_path(
+        "loop ride, chunked with prefetch, float64 geometry", loop_ride,
+        os.path.join(out_dir, "loop_chunked"), "fused", LOOP_LAUNCHES, loop_pose,
+        LOOP_TRUTH_BARS, period=LOOP_PERIOD, expect_loops=True, per_frame=False,
+        dtype=torch.float64)
+
+
+def print_default_against_per_frame(name, chunked, per_frame, phase, how):
+    print(f"7c {name}: chunked with prefetch {chunked['frames_per_s']:.3f} frames/s "
+          f"({chunked['dtype']}), frame by frame {per_frame['frames_per_s']:.3f} "
+          f"({per_frame['dtype']}; phase {phase}, this call; {how}); peak device memory "
+          f"{chunked['peak_mib']:.1f} against {per_frame['peak_mib']:.1f} MiB", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Lanes: once phases 7 and 7c's parallax ride have had the card alone, the
+# phases that need nothing of each other run at once, each group in a
+# process of its own (the card is more than 90% idle under each VO path,
+# whose host launches bound it; PERF.md §5). Each lane's phases keep their
+# own checks, kernel counts and bars; the times they print are taken
+# beside the other lanes.
+
+def _lane_main(send, fn, args, kwargs):
+    import traceback
+
+    os.setpgrp()  # Lane.stop ends the lane's own children with it
+    try:
+        import pilotguru_tpu_torch  # noqa: F401  (precision policy)
+
+        result = ("ok", fn(*args, **kwargs))
+    except BaseException:  # the parent raises it again
+        result = ("failed", traceback.format_exc())
+    send.send(result)
+    send.close()
+
+
+class Lane:
+    """``fn(*args, **kwargs)``, a function of this module, in a spawned
+    process from now on; ``result()`` waits for its return value and
+    raises if it raised; ``stop()`` ends the process if it still runs."""
+
+    def __init__(self, name, fn, *args, **kwargs):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.name = name
+        self._recv, send = ctx.Pipe(duplex=False)
+        self.started = time.perf_counter()
+        self.process = ctx.Process(target=_lane_main, args=(send, fn, args, kwargs),
+                                   name=name)
+        self.process.start()
+        send.close()
+
+    def result(self):
+        try:
+            status, value = self._recv.recv()
+        except EOFError:
+            self.process.join()
+            raise AssertionError(f"lane {self.name}: its process ended (exit code "
+                                 f"{self.process.exitcode}) without a result") from None
+        self.process.join()
+        print(f"-- lane {self.name} took {time.perf_counter() - self.started:.1f} s",
+              flush=True)
+        if status != "ok":
+            raise AssertionError(f"lane {self.name} failed:\n{value}")
+        return value
+
+    def stop(self):
+        import signal
+
+        for sig in (signal.SIGTERM, signal.SIGKILL):
+            try:
+                os.killpg(self.process.pid, sig)
+            except ProcessLookupError:
+                break
+            self.process.join(30)
+
+
+def run_cli_lane(ride, out_dir, phase7c_trajectory, phase7c_frames_per_s, decoder):
+    """The VO CLI on the image list, then the golden mp4 frame by frame
+    (where a decoder exists). Returns (run_vo_cli_image_list's row,
+    run_golden_cli's (row, path) or None)."""
+    vo_cli = run_vo_cli_image_list(ride, os.path.join(out_dir, "vo_cli"), phase7c_trajectory,
+                                   phase7c_frames_per_s)
+    per_frame = None
+    if decoder:
+        per_frame = run_golden_cli(os.path.join(out_dir, "golden_card_per_frame"),
+                                   per_frame=True)
+    return vo_cli, per_frame
+
+
+def run_golden_lane(out_dir):
+    """The golden mp4 through the VO CLI at its defaults (phase 10), then
+    its visualization (12i) against that run. Returns (run_golden_cli's
+    row, run_visualize's (launches, row))."""
+    golden, path = run_golden_cli(os.path.join(out_dir, "golden_card"))
+    return golden, run_visualize(os.path.join(out_dir, "visualize"), path)
+
+
+def run_host_lane(parallax_trajectory):
+    """Phases 13 to 15: fit_motion, the corpus and the ride annotation."""
+    run_fit_motion()
+    run_corpus()
+    run_annotation(parallax_trajectory)
+
+
 # The VO CLI in a child process where cv2 cannot be imported: the card
 # needs no cv2 even on a machine that has it. It prints one JSON line: the
 # exit code, the seconds, and the kernels' launches.
@@ -1844,13 +2136,14 @@ print(json.dumps({"exit": code, "seconds": time.perf_counter() - start,
 """
 
 
-def run_vo_cli_image_list(frames_u8, out_dir, phase7_trajectory, phase7_seconds):
-    """The optical_trajectories CLI (its main, with its flags) on the
-    parallax ride's frames written as a gray PNG image list with rgb.txt
-    (phase 7's timestamps) and a settings YAML written by vo/camera.py, in
-    a child process without cv2: the trajectory must equal phase 7's file
-    byte for byte, K1 and K2 launch once a frame and K3 never. Returns the
-    row (with the launches)."""
+def run_vo_cli_image_list(frames_u8, out_dir, phase7c_trajectory, phase7c_frames_per_s):
+    """The optical_trajectories CLI (its main, with its flags, at its
+    defaults: chunked, with prefetch) on the parallax ride's frames written
+    as a gray PNG image list with rgb.txt (phase 7's timestamps) and a
+    settings YAML written by vo/camera.py, in a child process without cv2:
+    the trajectory must equal phase 7c's parallax file (the same
+    configuration in memory) byte for byte, K1 and K2 launch once a frame
+    and K3 never. Returns the row (with the launches)."""
     from pilotguru_tpu_torch.video.io import write_image_list
     from pilotguru_tpu_torch.vo.camera import write_camera_settings
 
@@ -1871,15 +2164,15 @@ def run_vo_cli_image_list(frames_u8, out_dir, phase7_trajectory, phase7_seconds)
     child = json.loads(run.stdout.strip().splitlines()[-1])
     with open(os.path.join(traj_dir, "trajectory-0000.json"), "rb") as f:
         got = f.read()
-    with open(phase7_trajectory, "rb") as f:
+    with open(phase7c_trajectory, "rb") as f:
         same = f.read() == got
     n = len(frames_u8)
     row = {"frames": n, "png_list_written_s": written, "cli_seconds": child["seconds"],
            "cli_frames_per_s": n / child["seconds"],
-           "phase7_frames_per_s": n / phase7_seconds, "launches": child["launches"],
+           "phase7c_frames_per_s": phase7c_frames_per_s, "launches": child["launches"],
            "plain_cuda_calls": child["plain_cuda_calls"],
            "cv2_unimportable": child["cv2_unimportable"],
-           "segments": sorted(os.listdir(traj_dir)), "trajectory_equals_phase7": same}
+           "segments": sorted(os.listdir(traj_dir)), "trajectory_equals_phase7c": same}
     print(f"VO CLI on a gray PNG image list (child process, cv2 unimportable): "
           f"{json.dumps(row)}", flush=True)
     want = {"fast_nms": n, "gather_patches": n, "gather_blurred_patches": 0}
@@ -1887,7 +2180,7 @@ def run_vo_cli_image_list(frames_u8, out_dir, phase7_trajectory, phase7_seconds)
             and row["segments"] == ["trajectory-0000.json"] and child["launches"] == want
             and not any(child["plain_cuda_calls"].values())):
         raise AssertionError(f"VO CLI on the image list: {json.dumps(row)}; want launches "
-                             f"{want} and phase 7's trajectory")
+                             f"{want} and phase 7c's trajectory")
     return row
 
 
@@ -1902,7 +2195,9 @@ GOLDEN_TRAJECTORY = os.path.join(REPO_DIR, "tests", "golden", "expected", "vo",
 # the worst, the file's 1.25 degrees guards the CPU run's own RANSAC draws
 # only; the bar it names for a run with other draws is the JAX package's
 # per-frame run plus 0.1 degrees (1.402 + 0.1, test_torch_slice_replay.py).
-# The card's float32 run reads 1.365 (PERF.md).
+# The card's float32 per-frame run read 1.365 (PERF.md); the CLI now runs
+# chunked, as the JAX CLI that wrote the golden.
+GOLDEN_PER_FRAME_ROTATION_MAX = 1.365
 SLICE_BARS = {"centre_rmse_of_path": 0.03, "normal_deg": 2.0, "rotation_max_deg": 1.402 + 0.1,
               "rotation_mean_deg": 0.5}
 
@@ -1944,9 +2239,26 @@ def golden_cli_argv(out_dir):
             f"--out_dir={out_dir}"]
 
 
-def run_golden_cli(out_dir):
+@contextlib.contextmanager
+def frame_by_frame():
+    """Within: the VO CLI's trackers track frame by frame
+    (``track_chunk_frames=0``; the features still come through its
+    prefetcher)."""
+    from pilotguru_tpu_torch.vo import pipeline
+
+    make = pipeline.tracker_from_settings
+    pipeline.tracker_from_settings = (
+        lambda *args, **kwargs: make(*args, **{**kwargs, "track_chunk_frames": 0}))
+    try:
+        yield
+    finally:
+        pipeline.tracker_from_settings = make
+
+
+def run_golden_cli(out_dir, per_frame=False):
     """The VO CLI on the golden mp4 on the card (in this process, through
-    the decoder found): timed, K1 and K2 once a frame, one segment of the
+    the decoder found), at its defaults (chunked) or, with ``per_frame``,
+    frame by frame: timed, K1 and K2 once a frame, one segment of the
     golden's 120 frames within SLICE_BARS of the golden trajectory. Returns
     (row, trajectory path)."""
     from pilotguru_tpu_torch.cli import optical_trajectories
@@ -1956,7 +2268,7 @@ def run_golden_cli(out_dir):
     for c in counters:
         c.reset()
     start = time.perf_counter()
-    with _platform("cuda"):
+    with _platform("cuda"), frame_by_frame() if per_frame else contextlib.nullcontext():
         if optical_trajectories.main(golden_cli_argv(out_dir)) != 0:
             raise AssertionError("VO CLI on the golden video: non-zero exit")
     seconds = time.perf_counter() - start
@@ -1967,7 +2279,10 @@ def run_golden_cli(out_dir):
     row = {"frames": len(traj), "cli_seconds": seconds, "frames_per_s": len(traj) / seconds,
            "launches": launches, "against_golden": errors, "bars": SLICE_BARS,
            "segments": sorted(os.listdir(out_dir))}
-    print(f"VO CLI on the golden mp4 on the card: {json.dumps(row)}", flush=True)
+    how = "frame by frame" if per_frame else "its defaults: chunked, with prefetch"
+    print(f"VO CLI on the golden mp4 on the card ({how}): {json.dumps(row)}; worst rotation "
+          f"against the golden {errors['rotation_max_deg']:.3f} degrees (the per-frame CLI "
+          f"read {GOLDEN_PER_FRAME_ROTATION_MAX} on an H100)", flush=True)
     over = {k: errors[k] for k, v in SLICE_BARS.items() if not errors[k] <= v}
     want = {"fast_nms": 120, "gather_patches": 120, "gather_blurred_patches": 0}
     if over or launches != want or row["segments"] != ["trajectory-0000.json"]:
@@ -2123,10 +2438,13 @@ CPU_COMPANION = """
 import importlib, json, sys, time
 jobs = json.loads(sys.argv[1])
 seconds = {}
-for name, module, argv in jobs:
+import contextlib
+import chip_smoke
+for name, module, argv, per_frame in jobs:
     start = time.perf_counter()
-    if importlib.import_module("pilotguru_tpu_torch.cli." + module).main(argv) != 0:
-        raise SystemExit(name + ": non-zero exit")
+    with chip_smoke.frame_by_frame() if per_frame else contextlib.nullcontext():
+        if importlib.import_module("pilotguru_tpu_torch.cli." + module).main(argv) != 0:
+            raise SystemExit(name + ": non-zero exit")
     seconds[name] = time.perf_counter() - start
 print(json.dumps(seconds))
 """
@@ -2532,44 +2850,40 @@ def write_inference_inputs(root) -> dict:
     return {"root": root, "paths": paths, "checkpoints": checkpoints, "settings": settings}
 
 
-def run_frame_input_phases(root, decoder):
-    """The golden mp4 through the VO CLI (where ``decoder`` is not None),
-    make_steering_dataset on the road ride, predict_video with the PilotNet
-    ensemble, the train CLI on the dataset in float32 and bfloat16,
-    predict_video with the card's trained checkpoints and a brief
+def run_frame_input_phases(root):
+    """make_steering_dataset on the road ride, predict_video with the
+    PilotNet ensemble, the train CLI on the dataset in float32 and
+    bfloat16, predict_video with the card's trained checkpoints and a brief
     hyperparams_search, on the card; their CPU references run beside in one
-    child process. Then the train step's throughput. Returns the rows."""
+    child process. Returns the rows. (The golden mp4's card runs are in the
+    lanes, the forward pass's and the train step's timings after them.)"""
     from pilotguru_tpu_torch.cli import make_steering_dataset, predict_video, train
     from pilotguru_tpu_torch.formats import json_io
-    from pilotguru_tpu_torch.formats.trajectory import read_trajectory
 
     rows = {}
     start = time.perf_counter()
     rows["inputs"] = inputs = write_inference_inputs(root)
     paths, checkpoints, settings = inputs["paths"], inputs["checkpoints"], inputs["settings"]
     rows["inputs_written_s"] = time.perf_counter() - start
-    out = {k: os.path.join(root, k) for k in ("golden_card", "golden_cpu", "data_card",
-                                              "data_cpu", "train_cpu", "train_card_float32",
-                                              "train_card_bfloat16", "search")}
+    out = {k: os.path.join(root, k) for k in ("data_card", "data_cpu", "train_cpu",
+                                              "train_card_float32", "train_card_bfloat16",
+                                              "train_card_float32_again",
+                                              "search")}
     settings["trained"] = os.path.join(root, "settings-trained.json")
     json_io.write_json({**PILOTNET["settings"], "label_dimensions": 2,
                         "compute_dtype": "float32"}, settings["trained"])
     trained = [os.path.join(out["train_card_float32"], f"model-{i}-last.msgpack")
                for i in range(TRAIN["nets"])]
     # The CPU trains on its own dataset, which must equal the card's.
-    jobs = [("dataset", "make_steering_dataset", dataset_argv(paths, out["data_cpu"])),
+    jobs = [("dataset", "make_steering_dataset", dataset_argv(paths, out["data_cpu"]), False),
             ("predict float32", "predict_video",
              predict_argv(paths, checkpoints, settings["float32"],
-                          os.path.join(root, "predict-cpu.json"))),
-            ("train float32", "train", train_argv(out["data_cpu"], out["train_cpu"], "float32"))]
-    if decoder:
-        jobs.insert(0, ("golden VO", "optical_trajectories", golden_cli_argv(out["golden_cpu"])))
+                          os.path.join(root, "predict-cpu.json")), False),
+            ("train float32", "train", train_argv(out["data_cpu"], out["train_cpu"], "float32"),
+             False)]
     companion = start_cpu_companion(jobs)
     try:
         counters = _kernel_counters()
-        if decoder:
-            rows["golden"], card_path = run_golden_cli(out["golden_card"])
-            rows["golden_card_trajectory"] = card_path
         times = {}
         with _platform("cuda"):
             for c in counters:
@@ -2588,25 +2902,17 @@ def run_frame_input_phases(root, decoder):
             for dtype in ("float32", "bfloat16"):
                 _run_cli(times, f"train {dtype}", train.main,
                          train_argv(out["data_card"], out[f"train_card_{dtype}"], dtype))
+            _run_cli(times, "train float32 again", train.main,
+                     train_argv(out["data_card"], out["train_card_float32_again"], "float32"))
             _run_cli(times, "predict trained", predict_video.main,
                      predict_argv(paths, trained, settings["trained"],
                                   os.path.join(root, "predict-trained.json")))
             rows["search"] = run_search(out["data_card"], out["search"])
             _no_kernel_launches("dataset, inference and training", counters)
-        rows["forward"] = forward_timings(checkpoints)
     finally:
         cpu_seconds = finish_cpu_companion(companion)
 
     n = ROAD["frames"]
-    if decoder:
-        cpu = read_trajectory(os.path.join(out["golden_cpu"], "trajectory-0000.json"))
-        distance = trajectory_distance(read_trajectory(card_path), cpu)
-        rows["golden"].update(cpu_seconds=cpu_seconds["golden VO"], card_against_cpu=distance)
-        print(f"VO CLI on the golden mp4, card float32 against the port's CPU run (float64, "
-              f"same frames): {json.dumps(distance)}; bars {json.dumps(SLICE_BARS)}", flush=True)
-        over = {k: distance[k] for k, v in SLICE_BARS.items() if not distance[k] <= v}
-        if over:
-            raise AssertionError(f"golden mp4: the card's run is far from the CPU's: {over}")
     compared = compare_datasets(out["data_card"], out["data_cpu"])
     rows["dataset"] = {**compared, "card_seconds": times["dataset"],
                        "card_examples_per_s": compared["examples"] / times["dataset"],
@@ -2659,8 +2965,35 @@ def run_frame_input_phases(root, decoder):
             and rows["predict_trained"]["output_std"] > 1e-4):
         raise AssertionError(f"predict_video with the trained checkpoints: "
                              f"{rows['predict_trained']}")
-    rows["throughput"] = train_throughput()
     return rows
+
+
+def start_golden_cpu(out_dir):
+    """The port's CPU run of the VO CLI on the golden mp4, frame by frame,
+    in a child process (the CPU companion's), against which the card's
+    frame-by-frame run is held: chunked, the card's float32 run and the
+    CPU's float64 run make other keyframe decisions and part by 1.873
+    degrees on an H100 (PERF.md); the chunked card run is held to the
+    golden itself."""
+    return start_cpu_companion([("golden VO", "optical_trajectories",
+                                 golden_cli_argv(out_dir), True)])
+
+
+def check_golden_against_cpu(row, card_path, cpu_dir, cpu_seconds) -> dict:
+    """The card's frame-by-frame golden run against the CPU's, within
+    SLICE_BARS."""
+    from pilotguru_tpu_torch.formats.trajectory import read_trajectory
+
+    cpu = read_trajectory(os.path.join(cpu_dir, "trajectory-0000.json"))
+    distance = trajectory_distance(read_trajectory(card_path), cpu)
+    row.update(cpu_seconds=cpu_seconds["golden VO"], card_against_cpu=distance)
+    print(f"VO CLI on the golden mp4 frame by frame, card float32 against the port's CPU "
+          f"run (float64, same frames): {json.dumps(distance)}; bars "
+          f"{json.dumps(SLICE_BARS)}", flush=True)
+    over = {k: distance[k] for k, v in SLICE_BARS.items() if not distance[k] <= v}
+    if over:
+        raise AssertionError(f"golden mp4: the card's run is far from the CPU's: {over}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3018,7 +3351,8 @@ def run_map_resume(captured, frames_u8, parallax_trajectory, out_dir) -> dict:
     from pilotguru_tpu_torch.vo import map_io, pipeline, tracking
 
     saved = captured["map"]
-    tracker = pipeline.tracker_from_settings(ride_settings(), device="cuda")
+    tracker = pipeline.tracker_from_settings(ride_settings(), device="cuda",
+                                             track_chunk_frames=0)
     start = time.perf_counter()
     map_io.load_tracker_map(saved["path"], tracker)
     load_ms = 1e3 * (time.perf_counter() - start)
@@ -3203,9 +3537,9 @@ def run_host_tools(inputs, reference_json) -> dict:
         raise AssertionError(f"host tools: {json.dumps(row)}")
     return row
 
-def run_slice_phases(frame_rows, captured, ride, parallax_trajectory, out_dir, decoder):
-    """Phases 12e to 12j. Returns the K1 / K2 / K3 launches of their VO
-    paths (12h, and 12i where a decoder exists) and the rows."""
+def run_slice_phases(frame_rows, captured, ride, parallax_trajectory, out_dir):
+    """Phases 12e to 12h and 12j (12i runs in the golden lane). Returns the
+    K1 / K2 / K3 launches of 12h's VO path and the rows."""
     inputs = frame_rows["inputs"]
     reference = os.path.join(inputs["root"], "predict-card-float32.json")
     rows, launches = {}, {}
@@ -3214,24 +3548,24 @@ def run_slice_phases(frame_rows, captured, ride, parallax_trajectory, out_dir, d
     rows["dense_ba"] = run_dense_ba(captured)
     launches["map_resume"], rows["map_resume"] = run_map_resume(
         captured, ride, parallax_trajectory, out_dir)
-    if decoder:
-        launches["visualize"], rows["visualize"] = run_visualize(
-            os.path.join(out_dir, "visualize"), frame_rows["golden_card_trajectory"])
-    else:
-        print("no mp4 decoder: the visualization phase is skipped", flush=True)
     rows["host_tools"] = run_host_tools(inputs, reference)
     return launches, rows
 
 
 def check_training(out, times, cpu_seconds) -> dict:
     """The train CLI's card runs against the CPU's float32 run (within
-    TRAIN_F32_BARS; whether the markers and lr_scale agree is reported) and
-    the card's bfloat16 run against its float32 run (finite, falling,
-    within TRAIN_BF16_BAR); then the first step alone (check_train_step)."""
+    TRAIN_F32_BARS; whether the markers and lr_scale agree is reported),
+    the card's float32 run again equal to the first to the bit (training
+    asks cuDNN for its deterministic algorithms), and the card's bfloat16
+    run against its float32 run (finite, falling, within TRAIN_BF16_BAR);
+    then the first step alone (check_train_step)."""
     f32 = compare_training(out["train_card_float32"], out["train_cpu"])
+    again = compare_training(out["train_card_float32_again"], out["train_card_float32"])
     bf16 = compare_training(out["train_card_bfloat16"], out["train_card_float32"])
     bf16_train = _train_log(out["train_card_bfloat16"])
     row = {"card_float32_against_cpu": f32, "bars_float32": TRAIN_F32_BARS,
+           "card_float32_again": {k: again[k] for k in ("loss_rel", "param_abs",
+                                                        "markers_and_lr_scale_equal")},
            "card_bfloat16_against_card_float32": bf16, "bar_bfloat16": TRAIN_BF16_BAR,
            "bfloat16_train_loss_by_epoch": [e["train_loss"] for e in bf16_train],
            "seconds": {"card float32": times["train float32"],
@@ -3241,6 +3575,7 @@ def check_training(out, times, cpu_seconds) -> dict:
     losses = row["bfloat16_train_loss_by_epoch"]
     if not (f32["loss_rel"] <= TRAIN_F32_BARS["loss_rel"]
             and f32["param_abs"] <= TRAIN_F32_BARS["param_abs"]
+            and again["loss_rel"] == 0.0 and again["param_abs"] == 0.0
             and np.isfinite(losses).all() and losses[-1] < losses[0]
             and bf16["loss_rel"] <= TRAIN_BF16_BAR):
         raise AssertionError(f"train CLI on the card: over the bars: {json.dumps(row)}")
@@ -3257,6 +3592,11 @@ def main() -> int:
         return 2
     import pilotguru_tpu_torch  # noqa: F401  (precision policy)
     from pilotguru_tpu_torch import cuda_lib
+
+    started = time.perf_counter()
+
+    def mark(phase):
+        print(f"-- {phase} starts at {time.perf_counter() - started:.1f} s", flush=True)
 
     # TF32 moves the ride's trajectory by less than RANSAC draws do (PERF.md),
     # so the truth bars cannot see it: hold the policy itself.
@@ -3289,35 +3629,80 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     check_extractor_cuda_vs_cpu(ride[0], "blur_then_gather")
     check_extractor_cuda_vs_cpu(loop_ride[0], "fused")
+    mark("the seed guard")
     run_seed_guard(ride)
 
     out_dir = tempfile.mkdtemp(prefix="pg_chip_smoke_")
+    lanes, golden_cpu = [], None
     try:
+        # Phase 7 and 7c's parallax ride have the card alone: their frames/s
+        # are the pair this smoke compares.
+        mark("phase 7")
         with capture_parallax_state(os.path.join(out_dir, "map.npz")) as captured:
-            parallax, parallax_seconds = run_path(
+            parallax, _, parallax_row = run_path(
                 "parallax path", ride, os.path.join(out_dir, "parallax"),
-                "blur_then_gather",
-                {"fast_nms": 1, "gather_patches": 1, "gather_blurred_patches": 0},
-                ride_pose, TRUTH_BARS, untimed=captured,
+                "blur_then_gather", PARALLAX_LAUNCHES, ride_pose, TRUTH_BARS,
+                untimed=captured,
             )
         parallax_trajectory = os.path.join(out_dir, "parallax", "trajectory-0000.json")
-        loop, _ = run_path(
-            "loop ride", loop_ride, os.path.join(out_dir, "loop"), "fused",
-            {"fast_nms": 1, "gather_patches": 0, "gather_blurred_patches": 1}, loop_pose,
-            LOOP_TRUTH_BARS, period=LOOP_PERIOD, expect_loops=True,
-        )
-        vo_cli = run_vo_cli_image_list(
-            ride, os.path.join(out_dir, "vo_cli"), parallax_trajectory, parallax_seconds)
+        mark("7c's parallax ride")
+        chunked_parallax = run_default_parallax(ride, out_dir, parallax_row)
         decoder = mp4_decoder(GOLDEN_VIDEO)
         print(f"mp4 decoder on this machine (video/io.py's routes): {decoder or 'none'}; the "
-              f"golden-video phase {'runs' if decoder else 'is skipped'}", flush=True)
-        frame_rows = run_frame_input_phases(os.path.join(out_dir, "frame_input"), decoder)
+              f"golden-video phases {'run' if decoder else 'are skipped'}", flush=True)
+
+        mark("the lanes")
+        loop_lane = Lane("phase 8 (the loop ride frame by frame)", run_path,
+                         "loop ride", loop_ride, os.path.join(out_dir, "loop"), "fused",
+                         LOOP_LAUNCHES, loop_pose, LOOP_TRUTH_BARS, period=LOOP_PERIOD,
+                         expect_loops=True)
+        lanes.append(loop_lane)
+        loop_chunked_lane = Lane("7c's loop ride", run_default_loop, loop_ride, out_dir)
+        lanes.append(loop_chunked_lane)
+        cli_lane = Lane("the VO CLI on the image list and the golden mp4 frame by frame",
+                        run_cli_lane, ride, out_dir, chunked_parallax["trajectory"],
+                        chunked_parallax["frames_per_s"], decoder)
+        lanes.append(cli_lane)
+        if decoder:
+            golden_lane = Lane("the golden mp4 at the CLI's defaults and 12i", run_golden_lane,
+                               out_dir)
+            lanes.append(golden_lane)
+            golden_cpu = start_golden_cpu(os.path.join(out_dir, "golden_cpu"))
+        else:
+            print("no mp4 decoder: the visualization phase is skipped", flush=True)
+        host_lane = Lane("fit_motion, the corpus and the annotation", run_host_lane,
+                         parallax_trajectory)
+        lanes.append(host_lane)
+
+        mark("the frame-input phases (beside the lanes)")
+        frame_rows = run_frame_input_phases(os.path.join(out_dir, "frame_input"))
+        mark("phases 12e to 12h and 12j (beside the lanes)")
         slice_launches, _ = run_slice_phases(frame_rows, captured, ride, parallax_trajectory,
-                                             out_dir, decoder)
-        run_fit_motion()
-        run_corpus()
-        run_annotation(os.path.join(out_dir, "parallax", "trajectory-0000.json"))
+                                             out_dir)
+
+        loop, _, loop_row = loop_lane.result()
+        chunked_loop = loop_chunked_lane.result()[2]
+        print_default_against_per_frame("loop", chunked_loop, loop_row, 8,
+                                        "both in lanes, at once")
+        vo_cli, golden_per_frame = cli_lane.result()
+        if decoder:
+            _, (slice_launches["visualize"], _) = golden_lane.result()
+            cpu_seconds = finish_cpu_companion(golden_cpu)
+            golden_cpu = None
+            check_golden_against_cpu(*golden_per_frame, os.path.join(out_dir, "golden_cpu"),
+                                     cpu_seconds)
+        host_lane.result()
+        lanes = []
+        mark("the forward pass's and the train step's timings")
+        forward_timings(frame_rows["inputs"]["checkpoints"])
+        train_throughput()
+        mark("the kernel timings")
     finally:
+        for lane in lanes:
+            lane.stop()
+        if golden_cpu is not None:
+            golden_cpu.kill()
+            golden_cpu.communicate()
         shutil.rmtree(out_dir, ignore_errors=True)
 
     (k1, k1_levels), (k2, k2_levels) = time_fast_kernel(k1, loop_ride[0]), time_patch_kernel(k2)
@@ -3328,6 +3713,8 @@ def main() -> int:
         """``row``: the kernel at the shape the paths give it; ``one_level``:
         its one-level call at level 0, where the paths use the all-level one."""
         launches = {"parallax": parallax[name], "loop": loop[name],
+                    "parallax_chunked": chunked_parallax["launches"][name],
+                    "loop_chunked": chunked_loop["launches"][name],
                     "vo_cli": vo_cli["launches"][name],
                     **{path: counts[name] for path, counts in slice_launches.items()}}
         out = {

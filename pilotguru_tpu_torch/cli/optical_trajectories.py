@@ -10,9 +10,10 @@ tracked frames, and --visualize_live_port serves the live view over HTTP
 (vo/viewer.py); these three draw and encode with cv2 and do not run where
 cv2 is missing. The device comes from PILOTGURU_TPU_PLATFORM (cpu | cuda, default cuda);
 PGTPU_PATCH_IMPL=fused selects the fused blur + patch-gather kernel, as in
-the reference. The tracker runs the reference CLI's configuration (loop
-closing on, global BA after a closure) except chunking: frames track one
-at a time.
+the reference. The tracker runs the reference CLI's configuration: loop
+closing on, global BA after a closure, frames decoded on a thread of their
+own, features extracted in batches of 8 on a worker thread, and chunks of
+16 frames tracked through keyframes (vo/pipeline.py).
 """
 
 from __future__ import annotations

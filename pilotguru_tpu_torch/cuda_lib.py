@@ -23,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -191,12 +192,25 @@ class KernelCounter:
 
     ``launches`` counts kernel launches made by the wrapper; ``plain_cuda_calls``
     counts calls of the plain PyTorch version with CUDA tensors, which the
-    main path never makes (only the comparisons in chip_smoke.py do)."""
+    main path never makes (only the comparisons in chip_smoke.py do). The
+    extractor runs on the feature prefetcher's worker thread while other
+    threads may read or reset the counts, so every update takes the lock."""
 
     name: str
     launches: int = 0
     plain_cuda_calls: int = 0
+    _lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, repr=False, compare=False)
+
+    def count_launch(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+    def count_plain_cuda_call(self) -> None:
+        with self._lock:
+            self.plain_cuda_calls += 1
 
     def reset(self) -> None:
-        self.launches = 0
-        self.plain_cuda_calls = 0
+        with self._lock:
+            self.launches = 0
+            self.plain_cuda_calls = 0

@@ -24,6 +24,11 @@ Semantics kept from the JAX package:
   - best/last checkpoints per net, the console epoch lines with ``***`` /
     ``*`` markers and train_log.jsonl with the JAX package's keys.
 
+Repeatability: the training loop runs with cuDNN's deterministic
+algorithms (``_deterministic_cudnn``). Its default backward-filter
+algorithms may add with atomics, in whatever order the threads arrive, and
+this training amplifies rounding, so a run on the card would not repeat.
+
 Randomness: the host's ``np.random.default_rng(seed)`` draws each epoch's
 permutation and each batch's skip mask in the JAX package's order, so the
 batches and the skipped nets are the same. The device's draws
@@ -40,6 +45,7 @@ A checkpoint is the JAX package's file: flax's msgpack of {"params": ...,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -373,6 +379,18 @@ class TrainLogEvent:
     lr_scale_per_net: Optional[List[float]] = None
 
 
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    """cuDNN's deterministic algorithms within, the caller's choice after."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+@_deterministic_cudnn()
 def train_models(
     model,
     state: EnsembleState,

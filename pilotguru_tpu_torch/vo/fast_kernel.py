@@ -57,7 +57,7 @@ def fast_nms_plain(image: torch.Tensor, threshold: float = DEFAULT_THRESHOLD):
     The 16 taps accumulate sequentially in FAST_CIRCLE order, as the Pallas
     body and the CUDA kernel do, so the three agree bit for bit."""
     if image.is_cuda:
-        COUNTER.plain_cuda_calls += 1
+        COUNTER.count_plain_cuda_call()
     thr = _threshold_f32(threshold)
     h, w = image.shape
     padded = F.pad(image[None, None], (3, 3, 3, 3), mode="replicate")[0, 0]
@@ -145,6 +145,6 @@ def fast_nms_levels(
         ctypes.byref(table), ctypes.c_float(_threshold_f32(threshold)),
         cuda_lib.current_stream(device),
     )
-    COUNTER.launches += 1
+    COUNTER.count_launch()
     cuda_lib.check_launch("fast_nms_levels", err)
     return out

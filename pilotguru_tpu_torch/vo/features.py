@@ -401,3 +401,28 @@ def extract_orb_features(
         parts["valid"].append(valid)
         parts["descriptors"].append(desc)
     return Keypoints(**{name: torch.cat(v) for name, v in parts.items()})
+
+
+def extract_orb_features_batch(
+    images: torch.Tensor,
+    num_levels: int = 8,
+    scale: float = 1.2,
+    threshold: float = 20.0 / 255.0,
+    total_budget: int = 2000,
+    cell: int = 16,
+    patch_impl: str = "blur_then_gather",
+) -> Keypoints:
+    """``extract_orb_features`` of each image of a batch: [B, H, W] float32
+    -> Keypoints with a leading batch dimension. The frames run one after
+    the other, as the reference's ``lax.map``, so each launches K1 and K2
+    (or K3) once, exactly as a frame extracted alone."""
+    if images.dim() != 3:
+        raise ValueError(
+            f"extract_orb_features_batch: want [B, H, W], got {tuple(images.shape)}"
+        )
+    frames = [
+        extract_orb_features(image, num_levels=num_levels, scale=scale, threshold=threshold,
+                             total_budget=total_budget, cell=cell, patch_impl=patch_impl)
+        for image in images
+    ]
+    return Keypoints(*(torch.stack(field) for field in zip(*frames)))

@@ -60,7 +60,7 @@ def gather_patches_plain(
     patch k = edge_pad(image, r)[y:y+2r+1, x:x+2r+1] with (y, x) = yx[k]
     clamped into the image, the start clamping of ``dynamic_slice``."""
     if image.is_cuda:
-        COUNTER.plain_cuda_calls += 1
+        COUNTER.count_plain_cuda_call()
     h, w = image.shape
     size = 2 * radius + 1
     offs = torch.arange(size, device=image.device) - radius
@@ -127,7 +127,7 @@ def gather_patches_levels(
     if sum(counts) > 0:
         err = cuda_lib.library().pg_gather_patches_levels(
             ctypes.byref(table), out.data_ptr(), radius, cuda_lib.current_stream(device))
-        COUNTER.launches += 1
+        COUNTER.count_launch()
         cuda_lib.check_launch(name, err)
     return list(out.split(counts))
 
@@ -156,7 +156,7 @@ def gather_blurred_patches_plain(
     blur-then-gather by construction: the blur sees the edge-padded raw
     image, not the reflect-padded one."""
     if image.is_cuda:
-        BLUR_COUNTER.plain_cuda_calls += 1
+        BLUR_COUNTER.count_plain_cuda_call()
     taps, br = gaussian_kernel(sigma)
     h, w = image.shape
     size = 2 * radius + 1
@@ -232,6 +232,6 @@ def gather_blurred_patches_levels(
             ctypes.byref(table), all_yx.data_ptr(), taps, out.data_ptr(), radius, br,
             cuda_lib.current_stream(device),
         )
-        BLUR_COUNTER.launches += 1
+        BLUR_COUNTER.count_launch()
         cuda_lib.check_launch(name, err)
     return list(out.split(counts))

@@ -7,16 +7,24 @@ planar headings, turn angles), write trajectory-N.json, then restart a
 fresh tracker on the remaining video (reference
 src/optical_trajectories.cc:73-111 + src/slam/track_image_sequence.cc).
 
-Each frame's features are extracted on the tracker's device, one frame at
-a time, then tracked. The three visualization options (per-segment videos,
-overlay videos, the live HTTP view of vo/viewer.py) only read the tracker
-after each frame, so they leave the trajectory as it is; they draw and
-encode with cv2 and do not run where cv2 is missing.
+As the reference's CLI runs it: frames decode on a thread of their own
+(``background_frames``), their features are extracted in batches on a
+worker thread one batch ahead of the tracker (``prefetch_features``), and
+the tracker takes chunks of frames between keyframe decisions
+(MonocularTracker.process_chunk). ``feature_batch_size=0`` and a tracker
+with ``track_chunk_frames=0`` track frame by frame with the features
+extracted inline. The three visualization options (per-segment videos, overlay
+videos, the live HTTP view of vo/viewer.py) only read the tracker after
+each frame, so they leave the trajectory as it is; they draw and encode
+with cv2 and do not run where cv2 is missing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import queue
+import threading
 import time
 from dataclasses import dataclass
 from typing import Iterable, Iterator, Optional, Tuple
@@ -28,6 +36,7 @@ from pilotguru_tpu_torch.formats.trajectory import Trajectory, write_trajectory
 from pilotguru_tpu_torch.timeseries.smoothing import smooth_quaternion_sequence
 from pilotguru_tpu_torch.video.io import VideoWriterRgb, require_cv2
 from pilotguru_tpu_torch.vo.camera import CameraSettings
+from pilotguru_tpu_torch.vo.features import extract_orb_features_batch
 from pilotguru_tpu_torch.vo.flatten import flatten_trajectory
 from pilotguru_tpu_torch.vo.tracking import (
     LOST,
@@ -35,6 +44,9 @@ from pilotguru_tpu_torch.vo.tracking import (
     CameraModel,
     MonocularTracker,
     TrackerConfig,
+    device_images,
+    host_features,
+    pack_features,
 )
 
 
@@ -47,6 +59,159 @@ class VideoFrame:
     gray: np.ndarray  # [H, W] uint8 (preferred) or float32 in [0, 1]
     frame_id: int
     time_usec: int
+    # The frame's features as MonocularTracker.process_features takes them
+    # (kp_norm, desc, valid, level, angle): host arrays, but for the
+    # prefetcher's descriptors, which stay on the device. None until
+    # extracted.
+    features: Optional[tuple] = None
+    # The prefetcher's (kp_norm, desc, valid, level) rows on the device,
+    # which the chunked tracker takes without another upload.
+    dev_features: Optional[tuple] = None
+
+
+def _threaded(items: Iterable, maxsize: int, name: str) -> Iterator:
+    """Iterate ``items`` on a daemon worker thread through a queue of at
+    most ``maxsize`` items. An exception in the worker is raised again in
+    the consumer; closing this generator stops the worker at its next
+    item."""
+    out: queue.Queue = queue.Queue(maxsize=maxsize)
+    done = object()
+    stop = threading.Event()
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                out.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def run():
+        try:
+            for item in items:
+                if not put(item):
+                    return
+            put(done)
+        except Exception as exc:  # raised again in the consumer
+            put(exc)
+
+    threading.Thread(target=run, daemon=True, name=name).start()
+    try:
+        while True:
+            item = out.get()
+            if item is done:
+                return
+            if isinstance(item, Exception):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+def background_frames(frames: Iterable[VideoFrame], maxsize: int = 16) -> Iterator[VideoFrame]:
+    """Decode on a daemon thread of its own, so that decoding overlaps the
+    device work (the reference decodes inline on its tracking thread,
+    image_sequence_reader.cc). Exceptions are raised again in the
+    consumer."""
+    return _threaded(frames, maxsize, "frame-decode")
+
+
+def _extract_batch(grays, camera: CameraModel, config: TrackerConfig, device):
+    """One batch's features on the device: (packed [B, K, 5] float32, see
+    tracking.pack_features; kp_norm [B, K, 2]; desc [B, K, 256]; valid
+    [B, K]; level [B, K]). Each frame launches the extractor's kernels once,
+    as a frame extracted alone."""
+    kps = extract_orb_features_batch(
+        device_images(np.stack([np.asarray(g) for g in grays]), device),
+        num_levels=config.num_levels,
+        scale=config.scale,
+        threshold=config.fast_threshold,
+        total_budget=config.total_budget,
+        patch_impl=config.patch_impl,
+    )
+    packed, kp_norm = pack_features(kps, camera)
+    return packed, kp_norm, kps.descriptors, kps.valid, kps.level
+
+
+def _start_host_copy(tensor: torch.Tensor):
+    """(host tensor, event): a copy of ``tensor`` into pinned host memory,
+    queued behind the work that makes it. The host tensor may be read only
+    after ``event.synchronize()``; the event is None for a CPU tensor, which
+    is its own host copy."""
+    if tensor.device.type == "cpu":
+        return tensor, None
+    host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=True)
+    host.copy_(tensor, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(tensor.device))
+    return host, event
+
+
+def prefetch_features(
+    frames: Iterable[VideoFrame],
+    camera: CameraModel,
+    config: TrackerConfig,
+    batch_size: int = 8,
+    device="cuda",
+) -> Iterator[VideoFrame]:
+    """Yield ``frames`` with their ORB features attached (VideoFrame.features
+    and .dev_features), extracted ``batch_size`` frames at a time on
+    ``device`` with ``config``'s extractor settings (its ``patch_impl``
+    among them).
+
+    Keypoints are normalized on the device and every per-keypoint quantity
+    of a batch comes back in one packed array, copied to pinned host memory
+    behind the batch's work; the batches run one ahead, so batch k + 1 is
+    launched before batch k's copy is read. Descriptors stay on the device:
+    matching takes them there, and the tracker pulls a host copy only for a
+    keyframe. A short last batch is extracted as it is, never padded.
+
+    The whole pipeline runs on a daemon worker thread feeding a bounded
+    queue (three batches), on the consumer's current stream of ``device``,
+    so the consumer's work and the worker's are ordered on one stream. An
+    exception in the worker is raised again in the consumer."""
+    device = torch.device(device)
+    stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+
+    def batches():
+        batch = []
+        for frame in frames:
+            batch.append(frame)
+            if len(batch) == batch_size:
+                yield batch
+                batch = []
+        if batch:
+            yield batch
+
+    def launch(batch):
+        packed, *rows = _extract_batch([f.gray for f in batch], camera, config, device)
+        return batch, _start_host_copy(packed), rows
+
+    def finish(launched):
+        batch, (host, event), (kp_norm, desc, valid, level) = launched
+        if event is not None:
+            event.synchronize()
+        # A copy out of the pinned buffer, which then returns to the
+        # allocator (keyframes keep their keypoints for the whole ride).
+        host = host.numpy().copy()
+        for i, frame in enumerate(batch):
+            frame.dev_features = (kp_norm[i], desc[i], valid[i], level[i])
+            frame.features = host_features(host[i], frame.dev_features[1])
+            yield frame
+
+    def pipeline():
+        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
+            in_flight = None
+            for batch in batches():
+                launched = launch(batch)
+                if in_flight is not None:
+                    yield from finish(in_flight)
+                in_flight = launched
+            if in_flight is not None:
+                yield from finish(in_flight)
+
+    return _threaded(pipeline(), 3 * batch_size, "orb-prefetch")
 
 
 def video_frames(
@@ -70,13 +235,15 @@ def video_frames(
         yield VideoFrame(gray, frame_id, time_usec)
 
 
-def tracker_from_settings(
+def camera_and_config(
     settings: CameraSettings,
     image_scale: float = 1.0,
-    device="cuda",
-    dtype: Optional[torch.dtype] = None,
     patch_impl: str = "blur_then_gather",
-) -> MonocularTracker:
+    track_chunk_frames: int = TrackerConfig.track_chunk_frames,
+) -> Tuple[CameraModel, TrackerConfig]:
+    """The camera and the tracker configuration that ``settings`` give: the
+    camera YAML's intrinsics and ORB budget, the reference CLI's tracker
+    configuration otherwise."""
     camera = CameraModel(
         fx=settings.fx * image_scale,
         fy=settings.fy * image_scale,
@@ -93,7 +260,22 @@ def tracker_from_settings(
         num_levels=settings.orb_levels,
         fast_threshold=settings.orb_ini_th_fast / 255.0,
         patch_impl=patch_impl,
+        track_chunk_frames=track_chunk_frames,
     )
+    return camera, config
+
+
+def tracker_from_settings(
+    settings: CameraSettings,
+    image_scale: float = 1.0,
+    device="cuda",
+    dtype: Optional[torch.dtype] = None,
+    patch_impl: str = "blur_then_gather",
+    track_chunk_frames: int = TrackerConfig.track_chunk_frames,
+) -> MonocularTracker:
+    """A fresh tracker with ``camera_and_config``'s camera and configuration;
+    ``track_chunk_frames=0`` tracks frame by frame."""
+    camera, config = camera_and_config(settings, image_scale, patch_impl, track_chunk_frames)
     return MonocularTracker(camera, config, device=device, dtype=dtype)
 
 
@@ -184,6 +366,8 @@ def track_video_segments(
     out_dir: str,
     rotation_smooth_sigma: int = 0,
     image_scale: float = 1.0,
+    make_tracker=None,
+    feature_batch_size: int = 8,
     per_segment_videos: bool = False,
     visualize: bool = False,
     live_view_port: Optional[int] = None,
@@ -196,11 +380,23 @@ def track_video_segments(
     segment, restart after LOST, one JSON per valid segment. Returns
     (segments_written, frames_consumed).
 
-    ``stage_seconds``: when given, host seconds spent extracting features
-    (``"extract"``) and tracking (``"track"``) accumulate into it; both
-    stages end in a device-to-host copy, so the host clock covers the
-    device work. ``patch_impl``: the extractor's blurred-patch path
-    (TrackerConfig.patch_impl).
+    Frames decode on their own thread and their features are prefetched in
+    batches of ``feature_batch_size`` (0 decodes and extracts inline, frame
+    by frame), with the first tracker's camera and extractor settings on
+    its device; a tracker whose ``track_chunk_frames`` is above 0 takes
+    chunks of that many frames in the OK state. ``make_tracker``: a
+    function returning a fresh tracker for each segment (default:
+    ``tracker_from_settings`` with ``device``, ``dtype`` and
+    ``patch_impl``). Frames read but not consumed when a segment ends go
+    to the next segment's tracker.
+
+    ``stage_seconds``: when given, accumulates the host seconds spent
+    waiting for features (``"extract"``: the prefetch queue's wait, or the
+    inline extraction) and tracking (``"track"``), both ending in a
+    device-to-host copy, and the counts ``"chunks"`` (chunks dispatched),
+    ``"chunk_frames"`` (frames they consumed) and ``"refed"`` (frames a
+    chunk dispatched but left for the next). ``patch_impl``: the
+    extractor's blurred-patch path (TrackerConfig.patch_impl).
 
     ``per_segment_videos`` writes trajectory-NNNN.mp4 beside each
     trajectory JSON with exactly the OK-tracked frames, and remaps the
@@ -213,14 +409,22 @@ def track_video_segments(
     take the accepted segment's number and are removed for a rejected
     segment. ``live_view_port`` serves the overlay and the map over HTTP
     while the ride tracks (vo/viewer.py; 0 binds a free port, printed at
-    the start). The videos run at VIDEO_FPS."""
+    the start). The videos run at VIDEO_FPS; every consumed frame reaches
+    them, chunked or not."""
     if per_segment_videos or visualize or live_view_port is not None:
         require_cv2("optical_trajectories --output_per_segment_videos / --visualize / "
                     "--visualize_live_port")
     os.makedirs(out_dir, exist_ok=True)
     stages = stage_seconds if stage_seconds is not None else {}
-    stages.setdefault("extract", 0.0)
-    stages.setdefault("track", 0.0)
+    for key, zero in (("extract", 0.0), ("track", 0.0), ("chunks", 0), ("chunk_frames", 0),
+                      ("refed", 0)):
+        stages.setdefault(key, zero)
+    frames = iter(frames)
+    prefetched = None
+    if make_tracker is None:
+        def make_tracker():
+            return tracker_from_settings(settings, image_scale, device, dtype, patch_impl)
+
     viewer = None
     if live_view_port is not None:
         from pilotguru_tpu_torch.vo.viewer import LiveViewer
@@ -228,14 +432,22 @@ def track_video_segments(
         viewer = LiveViewer(live_view_port)
         print(f"live tracker view: http://localhost:{viewer.port}/")
 
-    frames = iter(frames)
     segment = 0
     raw_segment = 0  # counts rejected segments too (the videos' working names)
     consumed = 0
     exhausted = False
+    buf: list = []  # frames read (and prefetched) but not yet fed to a tracker
     try:
-        while not exhausted:
-            tracker = tracker_from_settings(settings, image_scale, device, dtype, patch_impl)
+        while not exhausted or buf:
+            tracker = make_tracker()
+            if feature_batch_size > 0 and prefetched is None:
+                # The prefetcher extracts with the first tracker's camera and
+                # extractor settings (its patch_impl among them), on its
+                # device; no tracker is made for it alone.
+                frames = prefetched = prefetch_features(
+                    background_frames(frames), tracker.camera, tracker.config,
+                    feature_batch_size, tracker.device)
+            chunk_size = tracker.config.track_chunk_frames
             fed = 0
             first_ok_fid = None
             videos = {}  # "trajectory" / "visualize" -> (path, writer)
@@ -246,16 +458,8 @@ def track_video_segments(
                     videos[kind] = (path, VideoWriterRgb(path, VIDEO_FPS))
                 videos[kind][1].consume(rgb)
 
-            for frame in frames:
-                t0 = time.perf_counter()
-                kp_norm, desc, valid, kp_level, kp_angle = tracker.features(frame.gray)
-                t1 = time.perf_counter()
-                state = tracker.process_features(
-                    kp_norm, desc, valid, frame.frame_id, frame.time_usec,
-                    kp_level, kp_angle,
-                )
-                stages["extract"] += t1 - t0
-                stages["track"] += time.perf_counter() - t1
+            def handle_frame(frame, state, rows):
+                nonlocal consumed, fed, first_ok_fid
                 consumed += 1
                 fed += 1
                 if state == OK:
@@ -264,7 +468,7 @@ def track_video_segments(
                     if per_segment_videos:
                         write("trajectory", np.repeat(gray_as_u8(frame.gray)[..., None], 3, 2))
                 if visualize or viewer is not None:
-                    rows = tracker.last_track_kp_rows
+                    kp_norm, _, valid = frame.features[:3]
                     overlay = _overlay_frame(frame.gray, tracker, frame.frame_id, kp_norm,
                                              valid, state, rows)
                     if visualize:
@@ -272,10 +476,50 @@ def track_video_segments(
                     if viewer is not None:
                         viewer.publish_frame(overlay)
                         viewer.publish_state(tracker, frame.frame_id, state, rows.size)
+
+            while True:
+                t0 = time.perf_counter()
+                while len(buf) < max(chunk_size, 1) and not exhausted:
+                    frame = next(frames, None)
+                    if frame is None:
+                        exhausted = True
+                    else:
+                        buf.append(frame)
+                t1 = time.perf_counter()
+                stages["extract"] += t1 - t0
+                if not buf:
+                    break
+                if tracker.state == OK and chunk_size > 0 and buf[0].features is not None:
+                    # A chunk tracks against the map as it stands at its
+                    # start, through a mid-chunk keyframe; it stops early at
+                    # a tracking failure or at a frame that must become a
+                    # keyframe from fresh-map results, and the rest stays in
+                    # ``buf``.
+                    dispatched = buf[:chunk_size]
+                    results = tracker.process_chunk(dispatched)
+                    stages["track"] += time.perf_counter() - t1
+                    stages["chunks"] += 1
+                    stages["chunk_frames"] += len(results)
+                    stages["refed"] += len(dispatched) - len(results)
+                    del buf[: len(results)]
+                    for frame, (state, rows) in zip(dispatched, results):
+                        handle_frame(frame, state, rows)
+                else:
+                    frame = buf.pop(0)
+                    if frame.features is None:
+                        frame.features = tracker.features(frame.gray)
+                        t2 = time.perf_counter()
+                        stages["extract"] += t2 - t1
+                        t1 = t2
+                    kp_norm, desc, valid, kp_level, kp_angle = frame.features
+                    state = tracker.process_features(
+                        kp_norm, desc, valid, frame.frame_id, frame.time_usec,
+                        kp_level, kp_angle,
+                    )
+                    stages["track"] += time.perf_counter() - t1
+                    handle_frame(frame, state, tracker.last_track_kp_rows)
                 if state == LOST:
                     break
-            else:
-                exhausted = True
             tracker.finalize()
             for _, writer in videos.values():
                 writer.close()
@@ -312,6 +556,8 @@ def track_video_segments(
             if fed == 0:
                 break
     finally:
+        if prefetched is not None:
+            prefetched.close()
         if viewer is not None:
             viewer.close()
     return segment, consumed

@@ -127,6 +127,22 @@ def transform(pose6, points):
     return points @ r.transpose(-1, -2) + pose6[..., None, 3:]
 
 
+def compose_pose(delta6, pose6):
+    """delta o pose for world->camera 6-vectors (device twin of
+    MonocularTracker._compose): R = R_d R_p, t = R_d t_p + t_d."""
+    r_d = rotvec_to_matrix(delta6[:3])
+    r_p = rotvec_to_matrix(pose6[:3])
+    return torch.cat([matrix_to_rotvec(r_d @ r_p), r_d @ pose6[3:] + delta6[3:]])
+
+
+def pose_delta(prev6, curr6):
+    """delta such that curr = delta o prev (device twin of
+    MonocularTracker._pose_delta)."""
+    r_prev = rotvec_to_matrix(prev6[:3])
+    r_d = rotvec_to_matrix(curr6[:3]) @ r_prev.T
+    return torch.cat([matrix_to_rotvec(r_d), curr6[3:] - r_d @ prev6[3:]])
+
+
 def project(points_cam):
     """Pinhole projection to the normalized plane, z-guarded."""
     z = points_cam[..., 2:3].clamp_min(1e-6)

@@ -1,5 +1,5 @@
 """Monocular visual-odometry tracker: host state machine + device compute
-(port of pilotguru_tpu/vo/tracking.py, the per-frame path).
+(port of pilotguru_tpu/vo/tracking.py).
 
 Per frame: projected matching against the local map plus robust pose
 refinement (``fused_track_step``), with reference-keyframe re-tracking and
@@ -15,8 +15,9 @@ Per-frame poses are stored relative to their reference keyframe and the
 absolute trajectory is rebuilt from the current keyframe poses
 (``final_trajectory``), so BA and loop corrections reach every frame.
 
-Not ported yet (see ROADMAP.md): chunked tracking (``track_chunk_frames``);
-the config refuses it.
+Between keyframes, ``process_chunk`` tracks up to ``track_chunk_frames``
+frames against the map as it stood at the chunk's start, through a
+keyframe inserted mid-chunk when ``chunk_through_keyframes`` is set.
 """
 
 from __future__ import annotations
@@ -31,7 +32,9 @@ from pilotguru_tpu_torch.vo import matching
 from pilotguru_tpu_torch.vo.ba import BAProblem, bundle_adjust
 from pilotguru_tpu_torch.vo.features import PATCH_IMPLS, extract_orb_features
 from pilotguru_tpu_torch.vo.pose import (
+    compose_pose,
     optimize_pose,
+    pose_delta,
     project,
     rotvec_to_matrix,
     skew,
@@ -159,6 +162,62 @@ def fused_track_step(
         m = matching.Matches(*(torch.where(better, a, b) for a, b in zip(m2, m)))
         in_view = torch.where(better, in_view2, in_view)
     return _packed(res.pose6, res.num_inliers, m.index, res.inliers, in_view)
+
+
+def fused_track_chunk(
+    points,  # [M, 3] map points (the compact local mirror, as fused_track_step)
+    point_desc,  # [M, 256]
+    cand_mask,  # [M] bool
+    point_level,  # [M] int32
+    pose0,  # [6] last tracked pose (the carry's dtype)
+    motion0,  # [6] motion-model delta (curr = motion o prev)
+    kp_norm,  # C-sequence of [K, 2]
+    kp_desc,  # C-sequence of [K, 256]
+    kp_valid,  # C-sequence of [K] bool
+    kp_level,  # C-sequence of [K] int32
+    search_radius: float,
+    max_distance: int,
+    scale: float = 1.2,
+    level_window: int = 2,
+    refine_radius: float = 0.0,
+    huber_delta: float = 0.006,
+    inlier_threshold: float = 0.01,
+    min_track_inliers: int = 25,
+):
+    """C consecutive tracking attempts (fused_track_step) against one map,
+    carrying the pose and the constant-velocity motion model on the device
+    from frame to frame, with no host read: the reference's whole-chunk
+    program (a scan there). Between keyframe decisions the map does not
+    change, so the only sequential state is (pose, motion). A frame whose
+    inlier count falls below ``min_track_inliers`` freezes the carry
+    (``failed``): later frames would track from a broken pose.
+
+    MonocularTracker.process_chunk does not call it: it computes a chunk's
+    attempts one at a time, up to the frame where the chunk stops, since
+    each attempt is thousands of launches from the host.
+
+    Returns [C, 7 + 3M]: per frame fused_track_step's packed vector
+    [pose6, num_inliers, match_idx[M], inliers[M], in_view[M]]."""
+    pose, motion = pose0, motion0
+    failed = torch.zeros((), dtype=torch.bool, device=pose0.device)
+    packs = []
+    for f_kp, f_kd, f_kv, f_kl in zip(kp_norm, kp_desc, kp_valid, kp_level):
+        packed = fused_track_step(
+            points, point_desc, cand_mask, point_level,
+            compose_pose(motion, pose).to(points.dtype), f_kp, f_kd, f_kv, f_kl,
+            search_radius=search_radius, max_distance=max_distance,
+            scale=scale, level_window=level_window,
+            refine_radius=refine_radius, huber_delta=huber_delta,
+            inlier_threshold=inlier_threshold,
+        )
+        new_pose = packed[:6].to(pose.dtype)
+        ok = (packed[6] >= min_track_inliers) & ~failed
+        new_motion = pose_delta(pose, new_pose)
+        pose = torch.where(ok, new_pose, pose)
+        motion = torch.where(ok, new_motion, motion)
+        failed = failed | ~ok
+        packs.append(packed)
+    return torch.stack(packs)
 
 
 def fused_ref_kf_track(
@@ -376,42 +435,64 @@ def normalize_keypoints_device(xy: torch.Tensor, camera: CameraModel):
     return torch.stack([x, y], dim=-1)
 
 
+def device_images(grays, device) -> torch.Tensor:
+    """Grayscale frames (uint8, or float32 in [0, 1]; numpy or torch) as
+    float32 in [0, 1] on ``device``. uint8 uploads as uint8 and converts on
+    the device."""
+    if isinstance(grays, np.ndarray):
+        grays = torch.from_numpy(np.ascontiguousarray(grays))
+    grays = grays.to(device)
+    if grays.dtype == torch.uint8:
+        return grays.to(torch.float32) / 255.0
+    return grays.to(torch.float32)
+
+
+def pack_features(kps, camera: CameraModel):
+    """Normalized keypoints and the per-keypoint fields of ``kps``
+    (Keypoints, any leading batch dimensions) on the device, with the
+    normalized keypoints apart: (packed [..., K, 5] float32 with columns
+    kp_norm x, y, valid, level, angle; kp_norm [..., K, 2]). The packed
+    array reaches the host in one copy."""
+    kp_norm = normalize_keypoints_device(kps.xy, camera)
+    packed = torch.cat(
+        [kp_norm, kps.valid.to(torch.float32)[..., None],
+         kps.level.to(torch.float32)[..., None], kps.angle[..., None]],
+        dim=-1,
+    )
+    return packed, kp_norm
+
+
+def host_features(packed: np.ndarray, desc) -> tuple:
+    """One frame's features as the tracker takes them, from its host
+    packed array [K, 5] (``pack_features``): (kp_norm [K, 2] float32, desc
+    as given, valid [K] bool, level [K] int32, angle [K] float32)."""
+    return (packed[:, :2], desc, packed[:, 2] > 0.5, packed[:, 3].astype(np.int32),
+            packed[:, 4].copy())
+
+
 def extract_frame_features(gray, camera: CameraModel, config: "TrackerConfig",
                            device) -> tuple:
-    """ORB features of one frame, extracted on ``device``: host arrays
-    (kp_norm [K, 2] float32, desc [K, 256] uint8, valid [K] bool,
-    level [K] int32, angle [K] float32).
-
-    Keypoints are normalized on the device and every per-keypoint quantity
-    rides back in one packed float32 array plus the descriptors (two
-    device-to-host copies per frame)."""
-    if isinstance(gray, np.ndarray):
-        gray = torch.from_numpy(np.ascontiguousarray(gray))
-    gray = gray.to(device)
-    if gray.dtype == torch.uint8:
-        gray = gray.to(torch.float32) / 255.0
+    """ORB features of one frame, extracted on ``device``, as host arrays
+    (``host_features``): the packed per-keypoint array and the descriptors
+    come back in two device-to-host copies."""
     kps = extract_orb_features(
-        gray.to(torch.float32),
+        device_images(gray, device),
         num_levels=config.num_levels,
         scale=config.scale,
         total_budget=config.total_budget,
         threshold=config.fast_threshold,
         patch_impl=config.patch_impl,
     )
-    kp_norm = normalize_keypoints_device(kps.xy, camera)
-    packed = torch.cat(
-        [kp_norm, kps.valid.to(torch.float32)[:, None],
-         kps.level.to(torch.float32)[:, None], kps.angle[:, None]],
-        dim=1,
-    ).cpu().numpy()
-    desc = kps.descriptors.cpu().numpy()
-    return (
-        packed[:, :2],
-        desc,
-        packed[:, 2] > 0.5,
-        packed[:, 3].astype(np.int32),
-        packed[:, 4].copy(),
-    )
+    packed, _ = pack_features(kps, camera)
+    return host_features(packed.cpu().numpy(), kps.descriptors.cpu().numpy())
+
+
+def host_array(array) -> np.ndarray:
+    """A host numpy copy of a tensor (a prefetched frame's descriptors stay
+    on the device until a keyframe needs them) or ``array`` as numpy."""
+    if isinstance(array, torch.Tensor):
+        return array.cpu().numpy()
+    return np.asarray(array)
 
 
 @dataclass(frozen=True)
@@ -448,9 +529,17 @@ class TrackerConfig:
     init_rich_points: int = 100
     # TrackReferenceKeyFrame fallback before relocalization.
     track_ref_kf_fallback: bool = True
-    # Chunked tracking (several frames per device program) is not ported:
-    # 0 is the only accepted value (ROADMAP.md, Queue 1 "chunked tracking").
-    track_chunk_frames: int = 0
+    # Frames a chunk (process_chunk) tracks against the map as it stands at
+    # the chunk's start, with the motion model carried on the device. Two
+    # keyframe_max_gap intervals: chunk_through_keyframes consumes through
+    # the first keyframe insertion and stops at the second trigger. 0
+    # tracks frame by frame.
+    track_chunk_frames: int = 16
+    # Consume the whole chunk even when a keyframe lands mid-chunk: frames
+    # after the insertion keep their results, tracked against the
+    # pre-keyframe map, as the reference's Tracking runs ahead of its
+    # LocalMapping thread. False rewinds at the keyframe (the per-frame
+    # path's results exactly).
     chunk_through_keyframes: bool = True
     # Triangulate each new keyframe against its N most recent predecessors.
     create_neighbor_kfs: int = 3
@@ -485,11 +574,6 @@ class TrackerConfig:
     loop_ba: str = "global"
 
     def __post_init__(self):
-        if self.track_chunk_frames != 0:
-            raise NotImplementedError(
-                "track_chunk_frames > 0 (chunked tracking) is not ported to "
-                "pilotguru_tpu_torch yet; see ROADMAP.md Queue 1, chunked tracking"
-            )
         if self.patch_impl not in PATCH_IMPLS:
             raise ValueError(f"patch_impl {self.patch_impl!r} is not one of {PATCH_IMPLS}")
 
@@ -513,10 +597,12 @@ class FramePose:
 
 
 class _FrameFeatures(NamedTuple):
-    """One frame's extracted features as fed to the tracker (host arrays)."""
+    """One frame's extracted features as fed to the tracker: host arrays,
+    but for the descriptors, which a prefetched frame keeps on the device
+    (host_array pulls them where a keyframe needs them)."""
 
     kp_norm: np.ndarray  # [K, 2]
-    desc: np.ndarray  # [K, 256] uint8
+    desc: np.ndarray  # [K, 256] uint8 (or a tensor on the tracker's device)
     valid: np.ndarray  # [K] bool
     level: np.ndarray  # [K] int32
     angle: np.ndarray  # [K] float32
@@ -638,9 +724,9 @@ class MonocularTracker:
 
     # ------------------------------------------------------------- device io
     def _t(self, array, dtype=None):
-        """Host array -> tensor on the tracker's device (geometry dtype for
-        floating arrays unless ``dtype`` is given)."""
-        t = torch.as_tensor(np.asarray(array))
+        """Host array (or tensor) -> tensor on the tracker's device (geometry
+        dtype for floating arrays unless ``dtype`` is given)."""
+        t = array if isinstance(array, torch.Tensor) else torch.as_tensor(np.asarray(array))
         if dtype is None and t.is_floating_point():
             dtype = self.dtype
         return t.to(device=self.device, dtype=dtype)
@@ -765,13 +851,112 @@ class MonocularTracker:
         self, kp_norm, desc, valid, frame_id: int, time_usec: int,
         kp_level, kp_angle,
     ) -> str:
-        """Feed one frame's extracted features (host arrays)."""
-        frame = _FrameFeatures(kp_norm, np.asarray(desc), valid, kp_level, kp_angle)
+        """Feed one frame's extracted features (host arrays; ``desc`` may be a
+        tensor on the tracker's device, as the prefetcher leaves it)."""
+        frame = _FrameFeatures(kp_norm, desc, valid, kp_level, kp_angle)
         if self.state == NOT_INITIALIZED:
             self._try_initialize(frame, frame_id, time_usec)
         elif self.state == OK:
             self._track(frame, frame_id, time_usec)
         return self.state
+
+    def process_chunk(self, frames) -> List[tuple]:
+        """Track up to ``config.track_chunk_frames`` consecutive frames
+        against the map as it stands at the call. Only in the OK state.
+
+        ``frames``: objects with ``.features`` (process_features' arrays),
+        ``.frame_id``, ``.time_usec`` and optionally ``.dev_features``, the
+        prefetcher's (kp_norm, desc, valid, level) tensors on the device,
+        used in the place of ``.features`` for the tracking attempts.
+
+        Returns [(state, tracked keypoint rows)] for the frames consumed;
+        the caller feeds the rest again. The chunk stops at a tracking
+        failure (that frame re-runs through process_features: a fresh
+        motion-model attempt, then the reference-keyframe and
+        relocalization fallbacks), and at a keyframe insertion when
+        ``config.chunk_through_keyframes`` is False. Otherwise the frames
+        after a mid-chunk keyframe keep their results, tracked against the
+        pre-keyframe map (the reference's Tracking-vs-LocalMapping lag),
+        up to a frame whose stale results would trigger another keyframe.
+
+        The reference computes the whole chunk in one device program
+        (fused_track_chunk) and reads it in one copy. Here each frame's
+        attempt (fused_track_step) is computed and read when the loop below
+        reaches it, from the chunk's map mirror and the chunk's pose and
+        motion carry, which the reference's program would use, so every
+        consumed frame gets the reference's result. The frames after the
+        chunk's stop (about half of a chunk) are not computed: an attempt
+        is thousands of launches from the host, so on the card they would
+        cost far more than the copy a frame they save.
+        """
+        if self.state != OK:
+            raise ValueError(f"process_chunk needs a tracker in the OK state, not {self.state}")
+        # The previous keyframe's deferred BA is not folded in here: it
+        # applies at the next keyframe insertion (_commit_tracked_frame), so
+        # the chunk tracks on pre-BA geometry, the reference's lag, instead
+        # of waiting for a BA at every chunk; the chunked and per-frame paths
+        # then see map updates at the same frames.
+        use = list(frames[: self.config.track_chunk_frames])
+        # The chunk's map: the mirror at the call, kept while keyframes
+        # inserted mid-chunk rebuild the tracker's own.
+        mirror = self._map_mirror()
+        # The chunk's carry, composed on the host in float64 as _track does,
+        # stays in the frame the chunk was dispatched in: a keyframe's BA or
+        # loop closure moves the tracker's pose, not the carry.
+        pose, motion = self._pose, self._motion
+        results: List[tuple] = []
+        # The carry's poses move onto the newest keyframe by their relative
+        # pose once a keyframe is inserted mid-chunk: (pose o anchor^-1) o
+        # new anchor (GetTrajectory's relative-pose transplant,
+        # System.cc:371-413). Until the first insertion nothing moves, so
+        # the common case equals the rewind path.
+        anchor_kf = self.keyframes[-1]
+        anchor_dev_pose = anchor_kf.pose6.copy()
+        transplant = False
+        for f in use:
+            dev = getattr(f, "dev_features", None)
+            frame = _FrameFeatures(*(dev if dev is not None else f.features[:4]),
+                                   f.features[4])
+            dev_pose6, num_inliers, match_idx, inliers, in_view = self._track_attempt(
+                self._compose(motion, pose), frame, mirror)
+            pose6 = dev_pose6
+            if transplant:
+                # A frame after the insertion whose stale-map results would
+                # trigger the keyframe policy is not consumed: a keyframe
+                # built from stale matches triangulates bad geometry (stale
+                # inlier counts are low, so the ratio rule would fire again
+                # and again). The caller feeds it again; it then re-tracks
+                # against the updated map.
+                ref_inl = self.keyframes[-1].num_inliers or num_inliers
+                if (num_inliers < self.config.keyframe_inlier_ratio * ref_inl
+                        or self._frames_since_keyframe + 1 >= self.config.keyframe_max_gap):
+                    return results
+                pose6 = self._compose(self._pose_delta(anchor_dev_pose, dev_pose6),
+                                      anchor_kf.pose6)
+            if num_inliers < self.config.min_track_inliers:
+                # The carry froze here: this frame runs the whole per-frame
+                # path, as in the reference: a fresh motion-model attempt
+                # against the current map mirror (a mid-chunk keyframe may
+                # have changed it), then the fallbacks.
+                state = self.process_features(*f.features[:3], f.frame_id, f.time_usec,
+                                              *f.features[3:])
+                results.append((state, self.last_track_kp_rows))
+                return results
+            motion = self._pose_delta(pose, dev_pose6)
+            pose = dev_pose6
+            next_id = self._next_kf_id
+            self._commit_tracked_frame(
+                _FrameFeatures(*f.features), f.frame_id, f.time_usec,
+                pose6, num_inliers, match_idx, inliers, in_view,
+            )
+            results.append((OK, self.last_track_kp_rows))
+            if self._next_kf_id != next_id:
+                if not self.config.chunk_through_keyframes:
+                    return results  # the map changed: rewind
+                anchor_kf = self.keyframes[-1]
+                anchor_dev_pose = dev_pose6
+                transplant = True
+        return results
 
     def _append_frame(self, frame_id, time_usec, pose6, is_lost=False):
         kf = self.keyframes[-1] if self.keyframes else None
@@ -804,6 +989,9 @@ class MonocularTracker:
 
     # ------------------------------------------------------- initialization
     def _try_initialize(self, frame: _FrameFeatures, frame_id, time_usec):
+        # Both frames of a successful initialization become keyframes, which
+        # hold their descriptors on the host.
+        frame = frame._replace(desc=host_array(frame.desc))
         kp_norm, desc, valid = frame.kp_norm, frame.desc, frame.valid
         if self._init_frame is None:
             self._init_frame = (frame, frame_id, time_usec)
@@ -924,11 +1112,17 @@ class MonocularTracker:
         )
 
     # --------------------------------------------------------------- track
-    def _track_attempt(self, predicted, frame: _FrameFeatures):
+    def _map_mirror(self):
+        """(the compact local mirror's tensors, the arena rows they hold)."""
+        tensors = self._device_map()
+        return tensors, self._dev_map_sel[: self._dev_map_count]
+
+    def _track_attempt(self, predicted, frame: _FrameFeatures, mirror=None):
         """Projected matching + robust pose refinement around a pose guess,
-        against the compact local mirror. Returns (pose6, num_inliers,
+        against the compact local mirror (``mirror``, a _map_mirror taken
+        earlier, or the current one). Returns (pose6, num_inliers,
         match_idx, inliers, in_view) as host values indexed by arena slot."""
-        points_dev, desc_dev, cand_dev, level_dev = self._device_map()
+        (points_dev, desc_dev, cand_dev, level_dev), rows = mirror or self._map_mirror()
         packed = fused_track_step(
             points_dev, desc_dev, cand_dev, level_dev,
             self._t(predicted),
@@ -943,8 +1137,7 @@ class MonocularTracker:
             inlier_threshold=self._inlier_thresh,
         ).cpu().numpy()
         b = int(cand_dev.shape[0])
-        n = self._dev_map_count
-        rows = self._dev_map_sel[:n]
+        n = len(rows)
         m = self.config.max_map_points
         match_idx = np.full(m, -1, np.int32)
         match_idx[rows] = packed[7 : 7 + n].astype(np.int32)
@@ -1082,7 +1275,7 @@ class MonocularTracker:
         matched_points = np.nonzero(inliers)[0]
         kp_map[match_idx[matched_points]] = matched_points
         kf = Keyframe(
-            new_pose.copy(), frame.kp_norm, frame.desc, frame.valid, kp_map,
+            new_pose.copy(), frame.kp_norm, host_array(frame.desc), frame.valid, kp_map,
             num_inliers, kf_id=self._next_kf_id,
             kp_level=np.asarray(frame.level, np.int32),
             kp_angle=np.asarray(frame.angle, np.float32),

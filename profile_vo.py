@@ -2,11 +2,15 @@
 
     python3 profile_vo.py [--ride parallax|loop] [--frames N] [--trace DIR]
     python3 profile_vo.py --extract-only [--ride parallax|loop] [--frames N]
+    python3 profile_vo.py --loop-configurations [--ride parallax|loop] [--frames N]
 
 Runs one of chip_smoke's synthetic 720p rides (2000 features, 8 levels):
 the parallax ride (render_ride, blur-then-gather) or the loop ride
 (render_loop_ride, the fused blur + gather, one loop closed near its end)
-through the port's segment loop on CUDA and prints, per frame:
+through the port's segment loop on CUDA, frame by frame (features
+extracted inline, ``track_chunk_frames=0``, so that every stage and step
+is timed on its own; chip_smoke.py's phase 7c times the loop's default,
+chunked with prefetch), and prints, per frame:
 - host seconds per stage and per tracker step (each timed section ends with
   ``torch.cuda.synchronize()``, so a step's device work is inside it);
 - from ``torch.profiler`` over a steady window of frames: the device's busy
@@ -20,6 +24,14 @@ frames (default 100), with both patch paths in turn, and prints per frame:
 host ms (each frame ends with a synchronisation, as the tracker's pull of
 the features does), device busy ms, kernels launched, and the launches of
 K1, K2 and K3 from their wrappers' counts.
+
+With ``--loop-configurations`` it runs the segment loop over the ride in
+turns: frame by frame with the features extracted inline; at its
+defaults, chunks of 16 through keyframes with the decode and feature
+prefetch threads; the same chunks on features prefetched before the run,
+so that no worker thread runs beside the tracker; then frame by frame
+again. For each it prints frames/s, the tracking attempts
+(``fused_track_step`` calls) with their host ms each, and the chunks.
 """
 
 from __future__ import annotations
@@ -37,7 +49,13 @@ import torch
 
 from chip_smoke import card_name_and_power, render_loop_ride, render_ride, ride_settings
 from pilotguru_tpu_torch.vo import tracking
-from pilotguru_tpu_torch.vo.pipeline import VideoFrame, track_video_segments
+from pilotguru_tpu_torch.vo.pipeline import (
+    VideoFrame,
+    camera_and_config,
+    prefetch_features,
+    track_video_segments,
+    tracker_from_settings,
+)
 
 # Tracker steps timed on their own (host seconds, synchronised).
 STEPS = (
@@ -94,6 +112,66 @@ def extract_only(ride) -> None:
               flush=True)
 
 
+def loop_configurations(ride, patch_impl) -> None:
+    settings = ride_settings()
+    attempts = [0, 0.0]
+    step = tracking.fused_track_step
+
+    def counted_step(*args, **kwargs):
+        start = time.perf_counter()
+        try:
+            return step(*args, **kwargs)
+        finally:
+            attempts[0] += 1
+            attempts[1] += time.perf_counter() - start
+
+    def frames():
+        return (VideoFrame(g, i, int(round(i * 1e6 / 30.0))) for i, g in enumerate(ride))
+
+    def per_frame():
+        return tracker_from_settings(settings, device="cuda", patch_impl=patch_impl,
+                                     track_chunk_frames=0)
+
+    def chunked():
+        return tracker_from_settings(settings, device="cuda", patch_impl=patch_impl)
+
+    def run(name, source, **options):
+        attempts[:] = [0, 0.0]
+        stages: dict = {}
+        out_dir = tempfile.mkdtemp(prefix="pg_profile_vo_")
+        try:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            segments, consumed = track_video_segments(
+                source, settings, out_dir, device="cuda", stage_seconds=stages,
+                patch_impl=patch_impl, **options)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - start
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+        print(json.dumps({
+            "configuration": name, "segments": segments, "frames": consumed,
+            "seconds": seconds, "frames_per_s": consumed / seconds,
+            "tracking_attempts": attempts[0],
+            "attempt_host_ms": 1e3 * attempts[1] / max(attempts[0], 1),
+            "chunks": stages["chunks"], "chunk_frames": stages["chunk_frames"],
+            "refed": stages["refed"]}), flush=True)
+
+    tracking.fused_track_step = counted_step
+    try:
+        run("frame by frame, features inline", frames(), feature_batch_size=0,
+            make_tracker=per_frame)
+        run("chunked with the prefetch threads (the default)", frames())
+        camera, config = camera_and_config(settings, patch_impl=patch_impl)
+        prefetched = list(prefetch_features(frames(), camera, config, device="cuda"))
+        run("chunked, features prefetched before the run (no thread beside it)",
+            iter(prefetched), feature_batch_size=0, make_tracker=chunked)
+        run("frame by frame, features inline, again", frames(), feature_batch_size=0,
+            make_tracker=per_frame)
+    finally:
+        tracking.fused_track_step = step
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--ride", choices=["parallax", "loop"], default="parallax")
@@ -104,6 +182,9 @@ def main(argv=None) -> int:
     parser.add_argument("--trace", default="", help="directory for the Chrome trace")
     parser.add_argument("--extract-only", action="store_true",
                         help="time the feature extractor alone, both patch paths")
+    parser.add_argument("--loop-configurations", action="store_true",
+                        help="the segment loop frame by frame, chunked with and without "
+                        "the prefetch threads")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_vo measures the card: no CUDA device")
@@ -120,6 +201,10 @@ def main(argv=None) -> int:
     else:
         ride = list(render_ride() if args.frames is None else render_ride(args.frames))
         patch_impl = "blur_then_gather"
+    if args.loop_configurations:
+        print(f"card: {card_name_and_power()}", flush=True)
+        loop_configurations(ride, patch_impl)
+        return 0
     settings = ride_settings()
     totals = collections.defaultdict(lambda: [0.0, 0])
     originals = {name: getattr(tracking.MonocularTracker, name) for name in STEPS}
@@ -150,7 +235,8 @@ def main(argv=None) -> int:
         start = time.perf_counter()
         segments, consumed = track_video_segments(
             frames(), settings, out_dir, device="cuda", stage_seconds=stages,
-            patch_impl=patch_impl,
+            feature_batch_size=0, make_tracker=lambda: tracker_from_settings(
+                settings, device="cuda", patch_impl=patch_impl, track_chunk_frames=0),
         )
         torch.cuda.synchronize()
         seconds = time.perf_counter() - start
@@ -161,8 +247,8 @@ def main(argv=None) -> int:
 
     print(f"{segments} segment(s), {consumed} frames, {seconds:.2f} s "
           f"({consumed / seconds:.3f} frames/s, timed sections synchronise)")
-    for stage, value in stages.items():
-        print(f"stage {stage}: {1e3 * value / consumed:.2f} ms/frame")
+    for stage in ("extract", "track"):
+        print(f"stage {stage}: {1e3 * stages[stage] / consumed:.2f} ms/frame")
     for name, (value, calls) in sorted(totals.items(), key=lambda kv: -kv[1][0]):
         print(f"step {name}: {1e3 * value / consumed:.2f} ms/frame "
               f"({calls} calls, {1e3 * value / max(calls, 1):.2f} ms/call)")

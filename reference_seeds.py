@@ -17,6 +17,18 @@ card).
 
     python3 reference_seeds.py --fused-golden none twoview@float64
 
+    python3 reference_seeds.py --chunked --ride loop|parallax [--float32]
+
+runs instead the reference's optical_trajectories pipeline at its
+defaults (features prefetched in batches of 8, chunks of 16 frames
+tracked through keyframes; the fused patch path on the loop ride, as
+chip_smoke.py's phase 7c runs the port) over the whole ride, with its own
+RANSAC draws, and prints the trajectory's errors against the ride's true
+poses (chip_smoke.trajectory_errors) beside the smoke's bars, with its
+chunk statistics.
+
+    python3 reference_seeds.py --fused-golden none twoview@float64
+
 runs instead the fused configuration on the golden video as
 tests/test_torch_slice_fused.py::test_fused_port_with_its_own_two_view
 does (the reference's RANSAC draws replayed, the port's own float32
@@ -64,6 +76,58 @@ def run_key(frames_u8, key):
             "states": states, "seconds": time.perf_counter() - start}
 
 
+def chunked_ride(ride) -> None:
+    import os
+
+    from pilotguru_tpu.formats.trajectory import read_trajectory
+
+    if ride == "loop":
+        os.environ["PGTPU_PATCH_IMPL"] = "fused"
+        frames_u8 = list(chip_smoke.render_loop_ride())
+        pose_of, period, bars = chip_smoke.loop_pose, chip_smoke.LOOP_PERIOD, \
+            chip_smoke.LOOP_TRUTH_BARS
+    else:
+        frames_u8 = list(chip_smoke.render_ride())
+        pose_of, period, bars = chip_smoke.ride_pose, None, chip_smoke.TRUTH_BARS
+    settings = CameraSettings(fx=chip_smoke.RIDE_FX, fy=chip_smoke.RIDE_FX,
+                              cx=chip_smoke.RIDE_W / 2.0, cy=chip_smoke.RIDE_H / 2.0,
+                              orb_features=2000, orb_levels=8)
+    trackers, chunks = [], []
+    make, process_chunk = pipeline.tracker_from_settings, tracking.MonocularTracker.process_chunk
+
+    def recording_tracker_from_settings(*args, **kwargs):
+        trackers.append(make(*args, **kwargs))
+        return trackers[-1]
+
+    def recording_chunk(self, frames):
+        results = process_chunk(self, frames)
+        chunks.append((min(len(frames), self.config.track_chunk_frames), len(results)))
+        return results
+
+    pipeline.tracker_from_settings = recording_tracker_from_settings
+    tracking.MonocularTracker.process_chunk = recording_chunk
+    with tempfile.TemporaryDirectory() as out:
+        start = time.perf_counter()
+        segments, consumed = pipeline.track_video_segments(
+            (pipeline.VideoFrame(g, i, int(round(i * 1e6 / 30.0)))
+             for i, g in enumerate(frames_u8)), settings, out)
+        seconds = time.perf_counter() - start
+        names = sorted(f for f in os.listdir(out) if f.endswith(".json"))
+        trajs = [read_trajectory(os.path.join(out, f)) for f in names]
+    longest = max(trajs, key=len) if trajs else None
+    errors = chip_smoke.trajectory_errors(longest, pose_of, period) if longest else None
+    print(json.dumps({
+        "ride": ride, "chunked": True, "x64": jax.config.jax_enable_x64,
+        "segments": segments, "frames": consumed,
+        "longest_segment": len(longest) if longest else 0,
+        "loop_closures": [t.stats["loop_closures"] for t in trackers[1:]],
+        "chunks": len(chunks), "frames_per_chunk": sum(c for _, c in chunks) / len(chunks),
+        "refed": sum(d - c for d, c in chunks), "seconds": seconds,
+        "against_truth": errors, "bars": bars,
+        "over": {k: v for k, v in (errors or {}).items() if k in bars and v > bars[k]}}),
+        flush=True)
+
+
 def fused_golden(swaps) -> None:
     import os
 
@@ -109,7 +173,13 @@ def main(argv=None) -> int:
                         help="x64 off: the tracker computes in float32")
     parser.add_argument("--fused-golden", nargs="+", default=None, metavar="SWAP",
                         help="the fused golden-video run under each ride_seeds.py swap")
+    parser.add_argument("--chunked", action="store_true",
+                        help="the reference's pipeline at its defaults over a whole ride")
+    parser.add_argument("--ride", choices=["parallax", "loop"], default="parallax")
     args = parser.parse_args(argv)
+    if args.chunked:
+        chunked_ride(args.ride)
+        return 0
     if args.fused_golden:
         fused_golden(args.fused_golden)
         return 0

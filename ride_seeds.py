@@ -1,12 +1,16 @@
 """The smoke's rides over several RANSAC generator seeds, on one NVIDIA card.
 
-    python3 ride_seeds.py --ride loop --seeds 0 1 2 3 4 [--loop-closing off]
+    python3 ride_seeds.py --ride loop|parallax|golden --seeds 0 1 2 3 4 [--loop-closing off]
         [--frames N] [--device cuda|cpu] [--dtype float32|float64]
         [--log PATH] [--swap NAME@cpu|NAME@float64 ...] [--probe-svd]
         [--nudge N ...]
 
 Renders chip_smoke's parallax ride or loop ride at 1280x720, runs
-optical_trajectories' segment loop on CUDA at 2000 features / 8 levels
+optical_trajectories' segment loop frame by frame (as the smoke's phases 7
+and 8; features extracted inline, track_chunk_frames=0), or with
+``--chunked`` at the loop's defaults (feature prefetch, chunks of 16
+through keyframes, as phase 7c and the CLI), on CUDA at 2000 features / 8
+levels
 (the parallax ride with blur-then-gather, the loop ride with the fused blur
 + patch gather, as chip_smoke runs them), once per seed of the tracker's
 RANSAC generator, and prints one JSON line per run: segments, the frames of
@@ -14,6 +18,9 @@ the longest segment, loop closures, frames/s, and that segment's errors
 against the ride's true poses (chip_smoke.trajectory_errors). The smoke's
 loop-ride bars sit just above the worst reading of seeds 0 to 4. Unlike
 the smoke, a run that loses track or misses a bar is reported, not raised.
+``--ride golden`` runs the golden video (tests/golden/inputs, decoded by
+video/io.py's routes) with its camera settings, as the VO CLI does, and
+measures it against the golden trajectory (chip_smoke.trajectory_distance).
 ``--frames`` keeps the start of the ride only; ``--device cpu`` runs the
 plain versions of the kernels on the CPU (a check of the tracker's
 decisions, not a measurement), in float64 unless ``--dtype`` says
@@ -21,10 +28,14 @@ otherwise (the card runs float32): reference_seeds.py runs the JAX
 package's tracker over the same frames.
 
 ``--log PATH`` appends, for every run, one JSON line per frame of the
-first segment to PATH: the tracker's state, each tracking attempt's
-projected matches, pose inliers and pose (6 numbers), the pose kept, the
-keyframes, and at the two-view initialization the model chosen
-(homography or essential) with its inlier count. Logs of the same draws
+first segment to PATH: the tracker's state, a digest of the frame's
+features, each tracking attempt's projected matches, pose inliers and
+pose (6 numbers), the pose kept, the keyframes, the first frame of the
+chunk that consumed it (null frame by frame; a chunk's last attempt, on a
+frame it stops at and leaves to the next, is logged with the state
+NOT_CONSUMED), and at the two-view
+initialization the model chosen (homography or essential) with its
+inlier count. Logs of the same draws
 on several devices and dtypes show the first frame where the runs part.
 
 ``--probe-svd`` measures every torch.linalg.svd call of a run without
@@ -51,6 +62,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import itertools
 import json
 import os
@@ -58,6 +70,7 @@ import shutil
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -190,28 +203,81 @@ def _floats(values):
     return [float(v) for v in np.asarray(values, np.float64).reshape(-1)]
 
 
+def _digest(kp_norm, desc) -> str:
+    """A short hash of a frame's keypoints and descriptors: equal digests
+    on two devices mean the trackers were given the same features."""
+    h = hashlib.sha1(np.ascontiguousarray(np.asarray(kp_norm, np.float32)).tobytes())
+    h.update(np.ascontiguousarray(tracking.host_array(desc)).tobytes())
+    return h.hexdigest()[:12]
+
+
 def instrument(tracker, log: list):
     """Per-frame records of ``tracker`` appended to ``log`` (see --log)."""
     attempt = tracker._track_attempt
     process = tracker.process_features
+    chunk = tracker.process_chunk
+    commit = tracker._commit_tracked_frame
+    pending = []  # attempts not yet given to a frame's record
+    where = {"chunk": None, "process": 0}
 
-    def logged_attempt(predicted, frame):
-        out = attempt(predicted, frame)
+    def record(frame_id, kp_norm, desc, chunk_start):
+        rec = {"frame": int(frame_id), "chunk": chunk_start,
+               "features": _digest(kp_norm, desc), "attempts": list(pending), "init": []}
+        pending.clear()
+        return rec
+
+    def close(rec, state):
+        rec.update(state=state, pose6=_floats(tracker._pose),
+                   keyframes=[kf.kf_id for kf in tracker.keyframes],
+                   map_points=int(tracker.point_valid.sum()))
+
+    def logged_attempt(*args):
+        out = attempt(*args)
         pose6, inliers, match_idx = out[0], out[1], out[2]
-        log[-1]["attempts"].append({"matches": int((match_idx >= 0).sum()),
-                                    "inliers": int(inliers), "pose6": _floats(pose6)})
+        pending.append({"matches": int((match_idx >= 0).sum()), "inliers": int(inliers),
+                        "pose6": _floats(pose6)})
         return out
 
     def logged_process(kp_norm, desc, valid, frame_id, time_usec, kp_level, kp_angle):
-        log.append({"frame": int(frame_id), "attempts": [], "init": []})
-        state = process(kp_norm, desc, valid, frame_id, time_usec, kp_level, kp_angle)
-        log[-1].update(state=state, pose6=_floats(tracker._pose),
-                       keyframes=[kf.kf_id for kf in tracker.keyframes],
-                       map_points=int(tracker.point_valid.sum()))
+        pending.clear()
+        rec = record(frame_id, kp_norm, desc, where["chunk"])
+        log.append(rec)
+        where["process"] += 1
+        try:
+            state = process(kp_norm, desc, valid, frame_id, time_usec, kp_level, kp_angle)
+        finally:
+            where["process"] -= 1
+        rec["attempts"] = list(pending)
+        pending.clear()
+        close(rec, state)
         return state
+
+    def logged_chunk(frames):
+        pending.clear()
+        where["chunk"] = int(frames[0].frame_id) if frames else None
+        try:
+            results = chunk(frames)
+            if pending:  # the attempt of the frame where the chunk stopped
+                f = frames[len(results)]
+                rec = record(f.frame_id, f.features[0], f.features[1], where["chunk"])
+                close(rec, "NOT_CONSUMED")
+                log.append(rec)
+            return results
+        finally:
+            where["chunk"] = None
+            pending.clear()
+
+    def logged_commit(frame, frame_id, time_usec, *rest):
+        commit(frame, frame_id, time_usec, *rest)
+        if where["chunk"] is not None and where["process"] == 0:
+            rec = record(frame_id, frame.kp_norm, frame.desc, where["chunk"])
+            close(rec, tracking.OK)
+            log.append(rec)
 
     tracker._track_attempt = logged_attempt
     tracker.process_features = logged_process
+    tracker.process_chunk = logged_chunk
+    tracker._commit_tracked_frame = logged_commit
 
 
 @contextlib.contextmanager
@@ -267,16 +333,18 @@ def nudge_features(tracker, nudge_seed: int):
     tracker.features = nudged
 
 
-def run_seed(frames_u8, seed, patch_impl, loop_closing, pose_of, period, device="cuda",
-             dtype=None, frame_log=None, nudge=None):
-    settings = chip_smoke.ride_settings()
+def run_seed(ride, seed, loop_closing, device="cuda", dtype=None, frame_log=None, nudge=None,
+             chunked=False):
+    """One run over ``ride`` (load_ride's); returns its JSON row."""
     trackers = []
     make = pipeline.tracker_from_settings
+    chunk_frames = pipeline.TrackerConfig.track_chunk_frames if chunked else 0
 
     def seeded_tracker_from_settings(*args, **kwargs):
         tracker = make(*args, **kwargs)
         tracker.config = dataclasses.replace(tracker.config,
-                                             enable_loop_closing=loop_closing)
+                                             enable_loop_closing=loop_closing,
+                                             track_chunk_frames=chunk_frames)
         tracker._generator.manual_seed(seed)
         if nudge is not None:
             nudge_features(tracker, nudge + len(trackers))
@@ -290,10 +358,12 @@ def run_seed(frames_u8, seed, patch_impl, loop_closing, pose_of, period, device=
     try:
         with logged_two_view(frame_log if frame_log is not None else []):
             start = time.perf_counter()
+            stages: dict = {}
             segments, consumed = pipeline.track_video_segments(
-                (pipeline.VideoFrame(g, i, int(round(i * 1e6 / 30.0)))
-                 for i, g in enumerate(frames_u8)),
-                settings, out_dir, device=device, dtype=dtype, patch_impl=patch_impl,
+                (pipeline.VideoFrame(g, i, t) for i, (g, t) in enumerate(ride.frames)),
+                ride.settings, out_dir, device=device, dtype=dtype,
+                patch_impl=ride.patch_impl, stage_seconds=stages,
+                **({} if chunked else {"feature_batch_size": 0}),
             )
             if device == "cuda":
                 torch.cuda.synchronize()
@@ -302,25 +372,53 @@ def run_seed(frames_u8, seed, patch_impl, loop_closing, pose_of, period, device=
     finally:
         pipeline.tracker_from_settings = make
         shutil.rmtree(out_dir, ignore_errors=True)
-    row = {"seed": seed, "nudge": nudge, "loop_closing": loop_closing, "device": device,
-           "dtype": str(trackers[0].dtype), "segments": segments,
+    row = {"seed": seed, "nudge": nudge, "loop_closing": loop_closing, "chunked": chunked,
+           "device": device, "dtype": str(trackers[0].dtype), "segments": segments,
            "frames": consumed, "frames_per_s": consumed / seconds,
            "loop_closures": [t.stats["loop_closures"] for t in trackers],
            "keyframes": [len(t.keyframes) for t in trackers]}
+    if chunked:
+        row.update(chunks=stages["chunks"], chunk_frames=stages["chunk_frames"],
+                   refed=stages["refed"])
     if trajs:
         longest = max(trajs, key=len)
         row["longest_segment"] = [int(longest.frame_id[0]), int(longest.frame_id[-1])]
-        row["errors"] = chip_smoke.trajectory_errors(longest, pose_of, period)
+        row["errors"] = ride.errors(longest)
     return row
 
 
-def _frames(args) -> dict:
-    return {} if args.frames is None else {"frames": args.frames}
+def load_ride(name: str, frames=None) -> SimpleNamespace:
+    """The ride ``name`` (its first ``frames`` frames; the golden video
+    whole): (gray, time_usec)
+    pairs, camera settings, patch path, and its trajectory errors (against
+    the true poses; the golden video's against the golden trajectory, as
+    chip_smoke's golden phase measures it)."""
+    if name == "golden":
+        from pilotguru_tpu_torch.vo.camera import read_camera_settings
+
+        golden = read_trajectory(chip_smoke.GOLDEN_TRAJECTORY)
+        return SimpleNamespace(
+            frames=[(f.gray, f.time_usec)
+                    for f in pipeline.video_frames(chip_smoke.GOLDEN_VIDEO)],
+            settings=read_camera_settings(chip_smoke.GOLDEN_CAMERA),
+            patch_impl="blur_then_gather",
+            errors=lambda traj: chip_smoke.trajectory_distance(traj, golden))
+    sized = {} if frames is None else {"frames": frames}
+    if name == "loop":
+        grays = chip_smoke.render_loop_ride(**sized)
+        patch_impl, pose_of, period = "fused", chip_smoke.loop_pose, chip_smoke.LOOP_PERIOD
+    else:
+        grays = chip_smoke.render_ride(**sized)
+        patch_impl, pose_of, period = "blur_then_gather", chip_smoke.ride_pose, None
+    return SimpleNamespace(
+        frames=[(g, int(round(i * 1e6 / 30.0))) for i, g in enumerate(grays)],
+        settings=chip_smoke.ride_settings(), patch_impl=patch_impl,
+        errors=lambda traj: chip_smoke.trajectory_errors(traj, pose_of, period))
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--ride", choices=["parallax", "loop"], default="loop")
+    parser.add_argument("--ride", choices=["parallax", "loop", "golden"], default="loop")
     parser.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4])
     parser.add_argument("--loop-closing", choices=["on", "off"], default="on")
     parser.add_argument("--frames", type=int, default=None)
@@ -333,25 +431,27 @@ def main(argv=None) -> int:
                         "(one run per nudge seed)")
     parser.add_argument("--probe-svd", action="store_true",
                         help="print each SVD call site's errors against float64")
+    parser.add_argument("--chunked", action="store_true",
+                        help="the segment loop at its defaults: feature prefetch, chunks of 16 "
+                        "through keyframes")
     args = parser.parse_args(argv)
+    if args.ride == "golden" and args.frames is not None:
+        parser.error("--frames cuts a rendered ride; the golden video runs whole")
+    if args.chunked and args.nudge:
+        parser.error("--nudge moves the tracker's own extraction; not with --chunked")
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("ride_seeds measures the card: no CUDA device")
         print(f"card: {chip_smoke.card_name_and_power()}", flush=True)
-    if args.ride == "loop":
-        frames = list(chip_smoke.render_loop_ride(**_frames(args)))
-        patch_impl, pose_of, period = "fused", chip_smoke.loop_pose, chip_smoke.LOOP_PERIOD
-    else:
-        frames = list(chip_smoke.render_ride(**_frames(args)))
-        patch_impl, pose_of, period = "blur_then_gather", chip_smoke.ride_pose, None
+    ride = load_ride(args.ride, args.frames)
     for spec, seed, nudge in itertools.product(args.swap, args.seeds, args.nudge or [None]):
         frame_log = [] if args.log else None
         svd_stats = {}
         probe = probed_svd(svd_stats) if args.probe_svd else contextlib.nullcontext()
         with swapped(spec), probe:
-            row = run_seed(frames, seed, patch_impl, args.loop_closing == "on", pose_of,
-                           period, args.device, args.dtype and getattr(torch, args.dtype),
-                           frame_log, nudge)
+            row = run_seed(ride, seed, args.loop_closing == "on", args.device,
+                           args.dtype and getattr(torch, args.dtype), frame_log, nudge,
+                           args.chunked)
         head = {"ride": args.ride, "swap": spec}
         print(json.dumps({**head, **row}), flush=True)
         if args.probe_svd:

@@ -302,24 +302,19 @@ def _fields(cls):
 
 
 def test_configs_match_reference():
-    """Same fields and defaults as the reference, but for per-frame tracking
-    (chunking is not ported) and the extractor's patch path, which the
+    """Same fields and defaults as the reference (chunks of 16 through
+    keyframes among them), but for the extractor's patch path, which the
     reference reads from PGTPU_PATCH_IMPL instead of its config."""
     port = _fields(tracking.TrackerConfig)
     ref = _fields(jtracking.TrackerConfig)
     assert set(port) - set(ref) == {"patch_impl"} and set(ref) <= set(port)
     differ = {k for k in ref if port[k] != ref[k]}
-    assert differ == {"track_chunk_frames"}
-    assert port["track_chunk_frames"] == 0 and port["enable_loop_closing"] is True
+    assert differ == set()
+    assert port["track_chunk_frames"] == 16 and port["chunk_through_keyframes"] is True
+    assert port["enable_loop_closing"] is True
     assert port["patch_impl"] == "blur_then_gather"
     assert _fields(CameraSettings) == _fields(JaxCameraSettings)
     assert _fields(tracking.CameraModel) == _fields(jtracking.CameraModel)
-
-
-@pytest.mark.parametrize("change", [{"track_chunk_frames": 16}])
-def test_unported_switches_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tracking.TrackerConfig(**change)
 
 
 def test_patch_impl_is_checked():

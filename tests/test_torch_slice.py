@@ -2,10 +2,24 @@
 golden VO trajectory that the JAX package wrote for the same video
 (tests/golden/expected/vo/trajectory-0000.json, tools/make_goldens.py).
 
-The golden came from the JAX CLI's default path (chunked tracking, loop
-closing on). The port runs the same configuration but per-frame tracking;
-on this video neither closes a loop. The two runs differ in their RANSAC
-draws and chunking, so poses agree within tolerances, not exactly.
+The golden came from the JAX CLI's default path (chunks of 16 frames
+tracked through keyframes, features prefetched in batches of 8, loop
+closing on). Each test runs on two port runs of the CLI (the
+``port_trajectory`` fixture's parameters):
+- "chunked": the CLI at its defaults, the JAX CLI's configuration, with the
+  reference's RANSAC draws replayed
+  (test_torch_slice_replay.port_replayed_run). The JAX pipeline at its
+  defaults rewrites the golden exactly on this machine, so with the same
+  draws the poses differ only through the features (the reference's
+  batched extractor picks another keypoint in 1 to 5 slots a frame,
+  tests/test_torch_prefetch.py).
+- "per_frame": the CLI tracking frame by frame (``track_chunk_frames=0``)
+  with the port's own draws, the run these bars were first set on.
+The port's own draws at the CLI's defaults are not held here: with the
+tracker's seed 0 that run's plane normal is over the 2 degree bar (2.186
+degrees; frame by frame 0.503), as RANSAC draws move this video's
+trajectory by more than the bars (ROADMAP.md, Queue 3). On this video
+neither package closes a loop.
 
 Decode route. Both packages take a frame's time from the native libav
 reader's pts when native/build/libpgvideo.so exists, and otherwise truncate
@@ -17,22 +31,23 @@ while this module runs, so the fixture pins both packages to the cv2 route
 takes: the frame times are then the JAX package's ``video_frames`` times
 exactly and the golden's within 1 us, whether or not the library exists.
 
-Bars set for this port, with the values measured here:
+Bars set for this port, with the values measured here (per_frame;
+chunked):
 - one segment with the golden's 120 frame ids: met, exactly; its times equal
   to the JAX package's on the same decode route, and within 1 us of the
   golden's;
 - camera centres after a Sim(3) alignment, RMSE <= 3% of the golden path
-  length: met, measured 1.445%;
-- plane normal within 2 degrees: met, measured 0.503 degrees;
-- per-frame rotation: measured max 1.231 degrees (mean 0.354). RANSAC draws
-  alone move this video's rotations by more than 1 degree: the JAX
-  package's own per-frame run is 1.402 degrees from the golden. The
+  length: met, measured 1.445%; 1.075%;
+- plane normal within 2 degrees: met, measured 0.503; 0.396 degrees;
+- per-frame rotation: measured max 1.231; 0.556 degrees (mean 0.354; 0.190).
+  RANSAC draws alone move this video's rotations by more than 1 degree: the
+  JAX package's own per-frame run is 1.402 degrees from the golden. The
   rotation bar that accounts for the draws is
   tests/test_torch_slice_replay.py::test_rotation_against_golden_within_the_draws
   (the port with the reference's draws replayed is no farther from the
   golden than the JAX per-frame run, plus 0.1 degrees). test_per_frame_rotation
-  below is a regression guard on the port's own draws: it holds the
-  measured maximum (1.25 degrees) and mean (0.5 degrees).
+  below holds the measured maximum (1.25 degrees) and mean (0.5 degrees):
+  on the per_frame run a regression guard on the port's own draws.
 """
 
 import os
@@ -40,12 +55,14 @@ import os
 import numpy as np
 import pytest
 import torch
+from test_torch_slice_replay import port_replayed_run
 
 from pilotguru_tpu.formats.trajectory import read_trajectory
 from pilotguru_tpu.video import native as jax_native_video
 from pilotguru_tpu.vo import pipeline as jax_pipeline
 from pilotguru_tpu_torch.cli import optical_trajectories
 from pilotguru_tpu_torch.video import native as native_video
+from pilotguru_tpu_torch.vo import pipeline
 
 torch.set_num_threads(1)
 
@@ -85,12 +102,19 @@ def cv2_decode_route():
         yield
 
 
-@pytest.fixture(scope="module")
-def port_trajectory(cv2_decode_route, tmp_path_factory):
+@pytest.fixture(scope="module", params=["per_frame", "chunked"])
+def port_trajectory(cv2_decode_route, tmp_path_factory, request):
     out = str(tmp_path_factory.mktemp("vo"))
-    old = os.environ.get("PILOTGURU_TPU_PLATFORM")
-    os.environ["PILOTGURU_TPU_PLATFORM"] = "cpu"
-    try:
+    if request.param == "chunked":
+        _, trackers, _ = port_replayed_run(out, per_frame=False)
+        assert trackers[0].config.track_chunk_frames == 16
+        assert sorted(os.listdir(out)) == ["trajectory-0000.json"]
+        return read_trajectory(os.path.join(out, "trajectory-0000.json"))
+    make = pipeline.tracker_from_settings
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("PILOTGURU_TPU_PLATFORM", "cpu")
+        mp.setattr(pipeline, "tracker_from_settings",
+                   lambda *args, **kwargs: make(*args, **{**kwargs, "track_chunk_frames": 0}))
         rc = optical_trajectories.main([
             "--vocabulary_file=",
             f"--camera_settings={INPUTS}/camera.yaml",
@@ -98,11 +122,6 @@ def port_trajectory(cv2_decode_route, tmp_path_factory):
             f"--out_dir={out}",
             "--dtype=auto",
         ])
-    finally:
-        if old is None:
-            os.environ.pop("PILOTGURU_TPU_PLATFORM", None)
-        else:
-            os.environ["PILOTGURU_TPU_PLATFORM"] = old
     assert rc == 0
     assert sorted(os.listdir(out)) == ["trajectory-0000.json"]
     return read_trajectory(os.path.join(out, "trajectory-0000.json"))
@@ -127,7 +146,7 @@ def test_camera_centres_after_sim3_alignment(port_trajectory):
     aligned = (c * (r @ port_trajectory.translations.T)).T + t
     rmse = np.sqrt(((aligned - golden.translations) ** 2).sum(1).mean())
     length = np.linalg.norm(np.diff(golden.translations, axis=0), axis=1).sum()
-    assert rmse <= 0.03 * length  # measured 1.445% of the path length
+    assert rmse <= 0.03 * length  # measured 1.445% (per_frame), 1.075% (chunked)
 
 
 def test_plane_normal(port_trajectory):
@@ -135,7 +154,7 @@ def test_plane_normal(port_trajectory):
     na = np.cross(port_trajectory.plane[0], port_trajectory.plane[1])
     ng = np.cross(golden.plane[0], golden.plane[1])
     cos = abs(na @ ng) / np.linalg.norm(na) / np.linalg.norm(ng)
-    assert np.degrees(np.arccos(min(cos, 1.0))) <= 2.0  # measured 0.503
+    assert np.degrees(np.arccos(min(cos, 1.0))) <= 2.0  # measured 0.503, 0.396
 
 
 def test_per_frame_rotation(port_trajectory):
@@ -145,7 +164,7 @@ def test_per_frame_rotation(port_trajectory):
         d = _quat_to_matrix(qa).T @ _quat_to_matrix(qg)
         diffs.append(np.degrees(np.arccos(np.clip((np.trace(d) - 1) / 2, -1, 1))))
     diffs = np.asarray(diffs)
-    # Regression guard on the port's own draws (module docstring); the
-    # draw-aware bar is in test_torch_slice_replay.py.
-    assert diffs.max() <= 1.25  # measured 1.231
-    assert diffs.mean() <= 0.5  # measured 0.354
+    # Regression guard (module docstring); the draw-aware bar is in
+    # test_torch_slice_replay.py.
+    assert diffs.max() <= 1.25  # measured 1.231 (per_frame), 0.556 (chunked)
+    assert diffs.mean() <= 0.5  # measured 0.354, 0.190

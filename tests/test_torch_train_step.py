@@ -246,3 +246,27 @@ def test_toy_net_per_net_sgd_step_against_the_vmapped_path():
         new_state._replace(params=params, batch_stats=stats), _torch_inputs(inputs),
         torch.as_tensor(labels))
     np.testing.assert_allclose(port_eval.numpy(), np.asarray(jax_eval), rtol=2e-5, atol=1e-6)
+
+
+class _StepBuilt(Exception):
+    pass
+
+
+def test_train_models_runs_with_deterministic_cudnn(monkeypatch):
+    """The training loop asks cuDNN for its deterministic algorithms (a run
+    on the card repeats) and gives the caller's choice back after, on an
+    exception too."""
+    seen = []
+
+    def record(*args, **kwargs):
+        seen.append(torch.backends.cudnn.deterministic)
+        raise _StepBuilt
+
+    monkeypatch.setattr(training, "make_train_step", record)
+    before = torch.backends.cudnn.deterministic
+    state = training.EnsembleState({}, {}, {}, torch.ones(1))
+    with pytest.raises(_StepBuilt):
+        training.train_models(None, state, None, {}, {}, [], "steering", [None],
+                              training.TrainSettings(epochs=1, batch_size=1), "")
+    assert seen == [True]
+    assert torch.backends.cudnn.deterministic == before

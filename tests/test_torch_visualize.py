@@ -4,7 +4,11 @@ golden video's first 60 frames written as a PNG image list
 --visualize is byte-identical to the run without it (the overlay only reads
 the tracker), and visualize-0000.mp4 holds every frame of the segment.
 The first 40 frames alone make a segment that the flatness test rejects
-in both packages (and with it its videos), so these runs take 60.
+in both packages (and with it its videos), so these runs take 60. The
+port's runs track frame by frame (``track_chunk_frames=0``, ``run_cli``):
+at the CLI's default, chunks of 16 through keyframes, the port's own
+RANSAC draws make a 60-frame segment that the flatness test rejects too
+(tests/test_torch_frame_input.py).
 
 tests/test_torch_visualize_jax.py holds the three flags together against
 the JAX CLI on the same list.
@@ -20,6 +24,7 @@ import torch
 from pilotguru_tpu.vo import pipeline as jax_pipeline
 from pilotguru_tpu_torch.cli import optical_trajectories
 from pilotguru_tpu_torch.video import io as video_io
+from pilotguru_tpu_torch.vo import pipeline
 
 torch.set_num_threads(1)
 
@@ -36,7 +41,12 @@ def golden_image_list(root):
 
 
 def run_cli(cli, image_list, out_dir, flags, monkeypatch):
+    """``cli``'s main on the list; the port's tracks frame by frame."""
     monkeypatch.setenv("PILOTGURU_TPU_PLATFORM", "cpu")
+    if cli is optical_trajectories:
+        make = pipeline.tracker_from_settings
+        monkeypatch.setattr(pipeline, "tracker_from_settings",
+                            lambda *args, **kwargs: make(*args, **{**kwargs, "track_chunk_frames": 0}))
     assert cli.main(["--vocabulary_file=", f"--camera_settings={INPUTS}/camera.yaml",
                      f"--in_video={image_list}", f"--out_dir={out_dir}"] + flags) == 0
     return sorted(os.listdir(out_dir))
