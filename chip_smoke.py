@@ -19,8 +19,10 @@ Phases (each raises on failure, so the script exits non-zero):
      border and corner keypoints) against 8 plain calls;
   6. the extractor on CUDA against the CPU, with both patch paths, and the
      seed guard (run_seed_guard): the first 20 parallax frames on the card
-     in float32 at RANSAC seed 2, reporting the frame where track is lost
-     (a float32 tie, PERF.md);
+     in float32 at RANSAC seed 2 through process_frame, reporting the frame
+     where track is lost beside the recorded one and, once the lanes are
+     done, beside the CPU's float32 run's (a child process beside the
+     lanes; a float32 tie, PERF.md);
   7. the parallax path: optical_trajectories' segment loop
      (pilotguru_tpu_torch.vo.pipeline.track_video_segments) with the default
      tracker configuration (loop closing on, blur-then-gather) but frame by
@@ -40,8 +42,8 @@ Phases (each raises on failure, so the script exits non-zero):
      configuration (run_default_parallax, run_default_loop): frames decoded
      on a thread, features prefetched in batches of 8 on a worker thread,
      chunks of 16 tracked through keyframes; phases 7's and 8's checks and
-     bars (the loop ride with float64 geometry: run_default_loop says
-     why); frames/s beside phases 7 and 8, chunks, frames consumed a chunk,
+     bars, in float32 as the CLI runs on the card; frames/s beside phases
+     7 and 8, chunks, frames consumed a chunk,
      frames re-fed, the wait for prefetched features, peak memory, and the
      parallax ride's device idle share over the chunks from frame 60 to 68
      (torch.profiler, whose window is left out of the frames/s);
@@ -51,12 +53,17 @@ Phases (each raises on failure, so the script exits non-zero):
      where cv2 cannot be imported (run_vo_cli_image_list): the trajectory
      equal to phase 7c's parallax trajectory to the byte, K1 and K2 once a
      frame, frames/s beside phase 7c's;
+ 9b. the tracker's image entry (run_process_frame): the first 40 parallax
+     frames through MonocularTracker.process_frame with feature_fn=None, K1
+     and K2 once a frame, no plain call, every state and pose equal to the
+     bit to a process_features run over the same frames at the same seed;
  10. the CLI on the golden mp4 (run_golden_cli), when video/io.py finds a
      decoder on this machine (mp4_decoder): at its defaults, chunked, within
-     SLICE_BARS of the golden trajectory; frame by frame within SLICE_BARS
-     of the golden and of the port's CPU run frame by frame on the same
-     frames (chunked, the card's float32 and the CPU's float64 runs make
-     other keyframe decisions);
+     SLICE_BARS of the golden trajectory and of the port's CPU tracker
+     replaying the card run's features chunked in float32 (the same
+     features and RANSAC draws: check_golden_replay); frame by frame within
+     SLICE_BARS of the golden and of the port's CPU run frame by frame on
+     the same frames;
  11. make_steering_dataset on a 600-frame 640x360 road ride (render_road,
      an RGB PNG image list, tests/synthetic.py-shaped JSONs) to 66x200 YUV,
      on the card and on the CPU: every npz array and PNG equal; seconds
@@ -147,7 +154,7 @@ Phases (each raises on failure, so the script exits non-zero):
      its grid and a copy of its bytes;
  17. one JSON line with every kernel at the shape the paths give it (all 8
      levels of a 720p frame in one launch): launches
-     on the paths (phases 7, 8, 7c, 9, 12h and 12i), error against the plain version,
+     on the paths (phases 7, 8, 7c, 9, 9b, 12h and 12i), error against the plain version,
      device ms, plain ms, the card's bound, a library call's ms where one
      exists; then, last, one JSON object
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -155,9 +162,10 @@ Phases (each raises on failure, so the script exits non-zero):
 Order: phases 1 to 6, phase 7 and 7c's parallax ride have the card
 alone (their frames/s are the pair compared). Then five lanes, each a
 spawned process (Lane), run beside the main process: phase 8; 7c's loop
-ride; phase 9 and phase 10's frame-by-frame golden run; phase 10's golden
-run at the CLI's defaults and 12i; phases 13 to 15. Phase 10's CPU run is
-a child process beside them, and the main process runs phases 11 to 12c
+ride; phases 9 and 9b and phase 10's frame-by-frame golden run; phase 10's
+golden run at the CLI's defaults, its CPU replay (a child process) and
+12i; phases 13 to 15. Phase 10's frame-by-frame CPU run is a child
+process beside them, and the main process runs phases 11 to 12c
 and 12e to 12h and 12j. Every lane's result is awaited (a lane that
 raised fails the smoke), then 12d, the forward-pass timings of phase 12
 and phase 16 run alone. The times printed inside the lanes and beside them
@@ -1032,7 +1040,7 @@ class _ProfileWindow:
 
 def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
              pose_of, bars, period=None, expect_loops=False, untimed=None,
-             per_frame=True, profile_window=None, dtype=None):
+             per_frame=True, profile_window=None):
     """Drive optical_trajectories' segment loop over ``frames_u8`` on CUDA
     at 2000 features / 8 levels, with the kernel counts set to 0 just before
     and read just after. ``per_frame``: features extracted inline and frames
@@ -1051,8 +1059,7 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     device busy time gives the device's idle share there; the window's
     frames and its whole time, the profiler's start and stop included, are
     taken off the run's seconds and frames/s. Returns (the launch counts,
-    the seconds, the row). ``dtype``: the trackers' geometry dtype (None:
-    the card's default, float32)."""
+    the seconds, the row)."""
     import torch
 
     from pilotguru_tpu_torch.formats.trajectory import read_trajectory
@@ -1080,8 +1087,8 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     pipeline.tracker_from_settings = recording_tracker_from_settings
     if per_frame:
         loop_options = {"feature_batch_size": 0, "make_tracker": lambda: (
-            pipeline.tracker_from_settings(settings, device="cuda", dtype=dtype,
-                                           patch_impl=patch_impl, track_chunk_frames=0))}
+            pipeline.tracker_from_settings(settings, device="cuda", patch_impl=patch_impl,
+                                           track_chunk_frames=0))}
     else:
         loop_options = {}
     window = _ProfileWindow(profile_window) if profile_window else None
@@ -1100,7 +1107,7 @@ def run_path(name, frames_u8, out_dir, patch_impl, launches_per_frame,
     start = time.perf_counter()
     try:
         segments, consumed = pipeline.track_video_segments(
-            frames, settings, out_dir, device="cuda", dtype=dtype, stage_seconds=stages,
+            frames, settings, out_dir, device="cuda", stage_seconds=stages,
             patch_impl=patch_impl, **loop_options,
         )
         torch.cuda.synchronize()
@@ -1468,44 +1475,69 @@ def run_fit_motion(reps: int = 3):
 
 
 # The seed guard: the start of the parallax ride at RANSAC seed 2, where the
-# float32 tracker loses track at frame 12, on the card and on the CPU alike:
-# a decision on a rounding-level tie, not a fault of the card (PERF.md;
-# ROADMAP Queue 3). The phase reports the frame; tests/test_torch_cuda.py
-# holds it to ``lost_at``.
-SEED_GUARD = {"seed": 2, "frames": 20, "lost_at": 12}
+# float32 tracker on the CPU loses track, at frame 13 with one thread and
+# at frame 12 with eight (the thread count changes the CPU's summation
+# order): a decision on a rounding-level tie (PERF.md; ROADMAP Queue 3).
+# Since the card computes its two-view initialization and SVDs in float64
+# (vo/twoview.py, utils/linalg.py), the card keeps track there. The phase
+# reports the first lost frame on the card and, from a one-thread child
+# process beside the lanes, on the CPU in float32; tests/test_torch_cuda.py
+# holds the card's to ``lost_at`` (None: not lost).
+SEED_GUARD = {"seed": 2, "frames": 20, "lost_at": None}
 
 
-def run_seed_guard(frames_u8):
-    """The first SEED_GUARD["frames"] parallax frames on the card in float32
-    (its geometry dtype) with the tracker's RANSAC
-    generator at SEED_GUARD["seed"], until track is lost; K1 and K2 must run
-    once a frame. Prints and returns the first lost frame (None if none)."""
+def run_seed_guard(frames_u8, device="cuda"):
+    """The first SEED_GUARD["frames"] parallax frames in float32 (the card's
+    geometry dtype) with the tracker's RANSAC generator at
+    SEED_GUARD["seed"], until track is lost, on ``device``; on the card K1
+    and K2 must run once a frame. Prints and returns the first lost frame
+    (None if none)."""
+    import torch
+
     from pilotguru_tpu_torch.vo import pipeline, tracking
 
     frames = frames_u8[:SEED_GUARD["frames"]]
-    tracker = pipeline.tracker_from_settings(ride_settings(), device="cuda",
-                                             track_chunk_frames=0)
+    tracker = pipeline.tracker_from_settings(ride_settings(), device=device,
+                                             dtype=torch.float32, track_chunk_frames=0)
     tracker._generator.manual_seed(SEED_GUARD["seed"])
     counters = _kernel_counters()
     for c in counters:
         c.reset()
     states = []
     for i, gray in enumerate(frames):
-        feats = tracker.features(gray)
-        states.append(tracker.process_features(*feats[:3], i, int(round(i * 1e6 / 30.0)),
-                                               *feats[3:]))
+        states.append(tracker.process_frame(gray, i, int(round(i * 1e6 / 30.0))))
         if states[-1] == tracking.LOST:
             break
     lost = len(states) - 1 if states[-1] == tracking.LOST else None
     launches = {c.name: c.launches for c in counters}
-    print(f"seed guard (parallax ride, RANSAC seed {SEED_GUARD['seed']}, card "
+    print(f"seed guard (parallax ride, RANSAC seed {SEED_GUARD['seed']}, {device} "
           f"{str(tracker.dtype).split('.')[-1]}): {states.count(tracking.OK)} frames tracked "
-          f"of {len(states)} run, first lost {lost} (recorded: {SEED_GUARD['lost_at']}), "
-          f"{len(tracker.keyframes)} keyframes; launches {launches}", flush=True)
+          f"of {len(states)} run, first lost {lost} (recorded on the card: "
+          f"{SEED_GUARD['lost_at']}), {len(tracker.keyframes)} keyframes; launches {launches}",
+          flush=True)
+    if device != "cuda":
+        return lost
     want = {"fast_nms": len(states), "gather_patches": len(states), "gather_blurred_patches": 0}
     if launches != want:
         raise AssertionError(f"seed guard: launches {launches}, want {want}")
     return lost
+
+
+def cpu_seed_guard_main():
+    """The seed guard on the CPU in float32 (one thread); prints its first
+    lost frame as one JSON line."""
+    lost = run_seed_guard(list(render_ride(frames=SEED_GUARD["frames"])), device="cpu")
+    print(json.dumps({"lost": lost}))
+
+
+def start_cpu_seed_guard():
+    """cpu_seed_guard_main in a child process with the CPU companion's
+    environment, one thread: its reading is printed beside the card's."""
+    env = dict(os.environ, PILOTGURU_TPU_PLATFORM="cpu", CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1", PYTHONPATH=REPO_DIR)
+    return subprocess.Popen([sys.executable, "-c", "import chip_smoke; "
+                             "chip_smoke.cpu_seed_guard_main()"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
 
 
 def _kernel_counters():
@@ -1993,25 +2025,14 @@ def run_default_parallax(ride, out_dir, parallax_row) -> dict:
 
 
 def run_default_loop(loop_ride, out_dir):
-    """7c, the loop ride: the segment loop at its defaults with float64
-    geometry (fused: K1 and K3 through the prefetcher), run_path's checks,
-    at least one loop closed, LOOP_TRUTH_BARS. Returns run_path's result.
-
-    The extraction and its kernels are float32 either way. In float32 the
-    ride reads 0.9045 degrees worst rotation at frame 15 on an H100, over
-    LOOP_TRUTH_BARS' 0.9, which were set over frame-by-frame runs: there
-    the chunk dispatched at frame 6 stops at frame 15 on a one-inlier tie
-    at the keyframe-ratio threshold and tracks frames 15 to 19 on the map
-    of frame 12's keyframe, which carries 0.7 to 0.9 degrees on the card in
-    float32 frame by frame as well (ride_seeds.py --log; PERF.md,
-    ROADMAP.md Queue 3). The bars stay as they are."""
-    import torch
-
+    """7c, the loop ride: the segment loop at its defaults, the CLI's on the
+    card (float32; fused: K1 and K3 through the prefetcher), run_path's
+    checks, at least one loop closed, LOOP_TRUTH_BARS. Returns run_path's
+    result."""
     return run_path(
-        "loop ride, chunked with prefetch, float64 geometry", loop_ride,
-        os.path.join(out_dir, "loop_chunked"), "fused", LOOP_LAUNCHES, loop_pose,
-        LOOP_TRUTH_BARS, period=LOOP_PERIOD, expect_loops=True, per_frame=False,
-        dtype=torch.float64)
+        "loop ride, chunked with prefetch", loop_ride, os.path.join(out_dir, "loop_chunked"),
+        "fused", LOOP_LAUNCHES, loop_pose, LOOP_TRUTH_BARS, period=LOOP_PERIOD,
+        expect_loops=True, per_frame=False)
 
 
 def print_default_against_per_frame(name, chunked, per_frame, phase, how):
@@ -2086,24 +2107,98 @@ class Lane:
 
 
 def run_cli_lane(ride, out_dir, phase7c_trajectory, phase7c_frames_per_s, decoder):
-    """The VO CLI on the image list, then the golden mp4 frame by frame
-    (where a decoder exists). Returns (run_vo_cli_image_list's row,
-    run_golden_cli's (row, path) or None)."""
+    """The VO CLI on the image list, the golden mp4 frame by frame (where a
+    decoder exists), then the tracker's image entry (run_process_frame).
+    Returns (run_vo_cli_image_list's row, run_golden_cli's (row, path) or
+    None, run_process_frame's launches)."""
     vo_cli = run_vo_cli_image_list(ride, os.path.join(out_dir, "vo_cli"), phase7c_trajectory,
                                    phase7c_frames_per_s)
     per_frame = None
     if decoder:
         per_frame = run_golden_cli(os.path.join(out_dir, "golden_card_per_frame"),
                                    per_frame=True)
-    return vo_cli, per_frame
+    return vo_cli, per_frame, run_process_frame(ride)
+
+
+# 9b: the parallax frames the tracker's image entry runs over.
+PROCESS_FRAME_FRAMES = 40
+
+
+def run_process_frame(frames_u8):
+    """9b, the tracker's image entry: the first PROCESS_FRAME_FRAMES
+    parallax frames through MonocularTracker.process_frame with
+    ``feature_fn=None`` (the tracker's own extractor on the card), frame by
+    frame at 2000 features / 8 levels, blur-then-gather, the kernel counts
+    set to 0 just before and read just after: K1 and K2 once a frame, K3
+    never, no plain version on a CUDA tensor. Beside it a tracker fed the
+    same frames through ``features`` and ``process_features`` at the same
+    RANSAC seed: every state, map point and pose equal to the bit. Returns
+    the launch counts."""
+    import torch
+
+    from pilotguru_tpu_torch.vo import pipeline
+
+    frames = frames_u8[:PROCESS_FRAME_FRAMES]
+    times = [int(round(i * 1e6 / 30.0)) for i in range(len(frames))]
+
+    def tracker():
+        return pipeline.tracker_from_settings(ride_settings(), device="cuda",
+                                              track_chunk_frames=0)
+
+    fed = tracker()
+    fed_states = []
+    for i, gray in enumerate(frames):
+        feats = fed.features(gray)
+        fed_states.append(fed.process_features(*feats[:3], i, times[i], *feats[3:]))
+    counters = _kernel_counters()
+    entry = tracker()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.reset()
+    start = time.perf_counter()
+    states = [entry.process_frame(gray, i, times[i]) for i, gray in enumerate(frames)]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    launches = {c.name: c.launches for c in counters}
+    plain_calls = {c.name: c.plain_cuda_calls for c in counters}
+    poses = [fp.pose6 for fp in entry.final_trajectory()]
+    fed_poses = [fp.pose6 for fp in fed.final_trajectory()]
+    equal = (states == fed_states and len(poses) == len(fed_poses)
+             and all(np.array_equal(a, b) for a, b in zip(poses, fed_poses))
+             and np.array_equal(entry.points, fed.points)
+             and np.array_equal(entry.point_valid, fed.point_valid))
+    row = {"frames": len(frames), "seconds": seconds, "frames_per_s": len(frames) / seconds,
+           "tracked": states.count("OK"), "keyframes": len(entry.keyframes),
+           "launches": launches, "plain_calls": plain_calls,
+           "equal_to_process_features": equal}
+    print(f"9b: the tracker's image entry (process_frame, feature_fn=None) on the first "
+          f"{len(frames)} parallax frames: {json.dumps(row)}", flush=True)
+    want = {"fast_nms": len(frames), "gather_patches": len(frames), "gather_blurred_patches": 0}
+    if launches != want or any(plain_calls.values()) or not equal:
+        raise AssertionError(f"9b: launches {launches} (want {want}), plain calls "
+                             f"{plain_calls}, equal to process_features: {equal}")
+    return launches
 
 
 def run_golden_lane(out_dir):
-    """The golden mp4 through the VO CLI at its defaults (phase 10), then
-    its visualization (12i) against that run. Returns (run_golden_cli's
-    row, run_visualize's (launches, row))."""
-    golden, path = run_golden_cli(os.path.join(out_dir, "golden_card"))
-    return golden, run_visualize(os.path.join(out_dir, "visualize"), path)
+    """The golden mp4 through the VO CLI at its defaults (phase 10), its
+    features saved; the port's CPU tracker replays them in a child process
+    (start_golden_replay) while the visualization (12i) runs against the
+    card's run; then the card's run against the replay
+    (check_golden_replay). Returns (run_golden_cli's row,
+    run_visualize's (launches, row))."""
+    features = os.path.join(out_dir, "golden_features.npz")
+    golden, path = run_golden_cli(os.path.join(out_dir, "golden_card"), features_to=features)
+    replay_dir = os.path.join(out_dir, "golden_replay")
+    replay = start_golden_replay(features, replay_dir)
+    try:
+        visualized = run_visualize(os.path.join(out_dir, "visualize"), path)
+        check_golden_replay(golden, path, replay_dir, finish_cpu_companion(replay))
+    finally:
+        if replay.poll() is None:
+            replay.kill()
+            replay.communicate()
+    return golden, visualized
 
 
 def run_host_lane(parallax_trajectory):
@@ -2234,6 +2329,63 @@ def trajectory_distance(a, b) -> dict:
             "time_gap_usec": time_gap}
 
 
+FEATURE_FIELDS = ("kp_norm", "desc", "valid", "kp_level", "kp_angle")
+
+
+def record_features(tracker, store: dict):
+    """From now on every frame's features that ``tracker`` is fed go into
+    ``store``: frame id -> (time_usec, the five arrays process_features
+    takes, on the host). A frame fed twice (a chunk's unconsumed tail) is
+    kept once; its features are the same."""
+    from pilotguru_tpu_torch.vo import tracking
+
+    process, chunk = tracker.process_features, tracker.process_chunk
+
+    def keep(frame_id, time_usec, feats):
+        store[int(frame_id)] = (int(time_usec),) + tuple(
+            np.array(tracking.host_array(a)) for a in feats)
+
+    def recording_process(kp_norm, desc, valid, frame_id, time_usec, kp_level, kp_angle):
+        keep(frame_id, time_usec, (kp_norm, desc, valid, kp_level, kp_angle))
+        return process(kp_norm, desc, valid, frame_id, time_usec, kp_level, kp_angle)
+
+    def recording_chunk(frames):
+        for f in frames[:tracker.config.track_chunk_frames]:
+            keep(f.frame_id, f.time_usec, f.features)
+        return chunk(frames)
+
+    tracker.process_features = recording_process
+    tracker.process_chunk = recording_chunk
+
+
+def save_features(path, store: dict):
+    """``store`` (record_features') as one npz file."""
+    arrays = {}
+    for frame_id, (time_usec, *feats) in store.items():
+        arrays[f"{frame_id}.time_usec"] = np.asarray(time_usec, np.int64)
+        arrays.update({f"{frame_id}.{k}": a for k, a in zip(FEATURE_FIELDS, feats)})
+    np.savez(path, **arrays)
+
+
+def load_features(path) -> dict:
+    """save_features' file as record_features' dict."""
+    with np.load(path) as data:
+        ids = sorted({int(k.split(".")[0]) for k in data.files})
+        return {i: (int(data[f"{i}.time_usec"]),) + tuple(data[f"{i}.{k}"]
+                                                          for k in FEATURE_FIELDS)
+                for i in ids}
+
+
+def replayed_frames(store: dict):
+    """The frames of ``store`` (record_features') in order, each carrying its
+    features and no image: the segment loop feeds them to its trackers
+    without extracting (feature_batch_size=0)."""
+    from pilotguru_tpu_torch.vo import pipeline
+
+    return [pipeline.VideoFrame(None, i, store[i][0], features=tuple(store[i][1:]))
+            for i in sorted(store)]
+
+
 def golden_cli_argv(out_dir):
     return [f"--camera_settings={GOLDEN_CAMERA}", f"--in_video={GOLDEN_VIDEO}",
             f"--out_dir={out_dir}"]
@@ -2255,23 +2407,48 @@ def frame_by_frame():
         pipeline.tracker_from_settings = make
 
 
-def run_golden_cli(out_dir, per_frame=False):
+@contextlib.contextmanager
+def features_recorded(store: dict):
+    """Within: every tracker the segment loop makes records the features it
+    is fed into ``store`` (record_features)."""
+    from pilotguru_tpu_torch.vo import pipeline
+
+    make = pipeline.tracker_from_settings
+
+    def recording(*args, **kwargs):
+        tracker = make(*args, **kwargs)
+        record_features(tracker, store)
+        return tracker
+
+    pipeline.tracker_from_settings = recording
+    try:
+        yield
+    finally:
+        pipeline.tracker_from_settings = make
+
+
+def run_golden_cli(out_dir, per_frame=False, features_to=None):
     """The VO CLI on the golden mp4 on the card (in this process, through
     the decoder found), at its defaults (chunked) or, with ``per_frame``,
     frame by frame: timed, K1 and K2 once a frame, one segment of the
-    golden's 120 frames within SLICE_BARS of the golden trajectory. Returns
-    (row, trajectory path)."""
+    golden's 120 frames within SLICE_BARS of the golden trajectory.
+    ``features_to``: a path where the features its trackers were fed are
+    saved (save_features). Returns (row, trajectory path)."""
     from pilotguru_tpu_torch.cli import optical_trajectories
     from pilotguru_tpu_torch.formats.trajectory import read_trajectory
 
+    store: dict = {}
     counters = _kernel_counters()
     for c in counters:
         c.reset()
     start = time.perf_counter()
-    with _platform("cuda"), frame_by_frame() if per_frame else contextlib.nullcontext():
+    with _platform("cuda"), frame_by_frame() if per_frame else contextlib.nullcontext(), \
+            features_recorded(store) if features_to else contextlib.nullcontext():
         if optical_trajectories.main(golden_cli_argv(out_dir)) != 0:
             raise AssertionError("VO CLI on the golden video: non-zero exit")
     seconds = time.perf_counter() - start
+    if features_to:
+        save_features(features_to, store)
     launches = {c.name: c.launches for c in counters}
     path = os.path.join(out_dir, "trajectory-0000.json")
     traj = read_trajectory(path)
@@ -2971,12 +3148,60 @@ def run_frame_input_phases(root):
 def start_golden_cpu(out_dir):
     """The port's CPU run of the VO CLI on the golden mp4, frame by frame,
     in a child process (the CPU companion's), against which the card's
-    frame-by-frame run is held: chunked, the card's float32 run and the
-    CPU's float64 run make other keyframe decisions and part by 1.873
-    degrees on an H100 (PERF.md); the chunked card run is held to the
-    golden itself."""
+    frame-by-frame run is held. The chunked card run is held to the golden
+    and to the CPU's replay of its own features (run_golden_lane): on
+    features extracted apart, the card's chunked float32 run and the CPU's
+    chunked float64 run parted by 1.873 degrees on an H100 (PERF.md)."""
     return start_cpu_companion([("golden VO", "optical_trajectories",
                                  golden_cli_argv(out_dir), True)])
+
+
+def replay_golden_features(features_path, out_dir):
+    """The segment loop over the golden mp4's saved features (no decoding,
+    no extraction) on the CPU in float32, at the CLI's defaults otherwise
+    (chunks of 16 through keyframes, each tracker's RANSAC generator at
+    seed 0, as the card's CLI run). Prints one JSON line."""
+    import torch
+
+    from pilotguru_tpu_torch.vo import pipeline
+    from pilotguru_tpu_torch.vo.camera import read_camera_settings
+
+    start = time.perf_counter()
+    segments, frames = pipeline.track_video_segments(
+        replayed_frames(load_features(features_path)), read_camera_settings(GOLDEN_CAMERA),
+        out_dir, device="cpu", dtype=torch.float32, feature_batch_size=0)
+    print(json.dumps({"golden replay": time.perf_counter() - start, "segments": segments,
+                      "frames": frames}))
+
+
+def start_golden_replay(features_path, out_dir):
+    """replay_golden_features in a child process with the CPU companion's
+    environment, one thread."""
+    env = dict(os.environ, PILOTGURU_TPU_PLATFORM="cpu", CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1", PYTHONPATH=REPO_DIR)
+    code = "import sys, chip_smoke; chip_smoke.replay_golden_features(*sys.argv[1:])"
+    return subprocess.Popen([sys.executable, "-c", code, features_path, out_dir],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def check_golden_replay(row, card_path, replay_dir, replay) -> dict:
+    """The card's chunked float32 golden run against the CPU's float32
+    replay of the card's features (the same features and RANSAC draws,
+    chunked), within SLICE_BARS."""
+    from pilotguru_tpu_torch.formats.trajectory import read_trajectory
+
+    cpu = read_trajectory(os.path.join(replay_dir, "trajectory-0000.json"))
+    distance = trajectory_distance(read_trajectory(card_path), cpu)
+    row.update(replay=replay, card_against_replay=distance)
+    print(f"VO CLI on the golden mp4 at its defaults, card float32 against the port's CPU "
+          f"float32 replay of the card's features (chunked, {replay['golden replay']:.1f} s, "
+          f"{replay['segments']} segment(s)): {json.dumps(distance)}; bars "
+          f"{json.dumps(SLICE_BARS)}", flush=True)
+    over = {k: distance[k] for k, v in SLICE_BARS.items() if not distance[k] <= v}
+    if over or replay["segments"] != 1:
+        raise AssertionError(f"golden mp4: the card's chunked run is far from the CPU's replay "
+                             f"of its features: {over}, {replay['segments']} segment(s)")
+    return row
 
 
 def check_golden_against_cpu(row, card_path, cpu_dir, cpu_seconds) -> dict:
@@ -3630,10 +3855,10 @@ def main() -> int:
     check_extractor_cuda_vs_cpu(ride[0], "blur_then_gather")
     check_extractor_cuda_vs_cpu(loop_ride[0], "fused")
     mark("the seed guard")
-    run_seed_guard(ride)
+    card_lost = run_seed_guard(ride)
 
     out_dir = tempfile.mkdtemp(prefix="pg_chip_smoke_")
-    lanes, golden_cpu = [], None
+    lanes, golden_cpu, cpu_seed_guard = [], None, None
     try:
         # Phase 7 and 7c's parallax ride have the card alone: their frames/s
         # are the pair this smoke compares.
@@ -3659,7 +3884,7 @@ def main() -> int:
         lanes.append(loop_lane)
         loop_chunked_lane = Lane("7c's loop ride", run_default_loop, loop_ride, out_dir)
         lanes.append(loop_chunked_lane)
-        cli_lane = Lane("the VO CLI on the image list and the golden mp4 frame by frame",
+        cli_lane = Lane("the VO CLI on the image list, the golden mp4 frame by frame and 9b",
                         run_cli_lane, ride, out_dir, chunked_parallax["trajectory"],
                         chunked_parallax["frames_per_s"], decoder)
         lanes.append(cli_lane)
@@ -3672,6 +3897,7 @@ def main() -> int:
             print("no mp4 decoder: the visualization phase is skipped", flush=True)
         host_lane = Lane("fit_motion, the corpus and the annotation", run_host_lane,
                          parallax_trajectory)
+        cpu_seed_guard = start_cpu_seed_guard()
         lanes.append(host_lane)
 
         mark("the frame-input phases (beside the lanes)")
@@ -3684,7 +3910,7 @@ def main() -> int:
         chunked_loop = loop_chunked_lane.result()[2]
         print_default_against_per_frame("loop", chunked_loop, loop_row, 8,
                                         "both in lanes, at once")
-        vo_cli, golden_per_frame = cli_lane.result()
+        vo_cli, golden_per_frame, process_frame_launches = cli_lane.result()
         if decoder:
             _, (slice_launches["visualize"], _) = golden_lane.result()
             cpu_seconds = finish_cpu_companion(golden_cpu)
@@ -3692,6 +3918,10 @@ def main() -> int:
             check_golden_against_cpu(*golden_per_frame, os.path.join(out_dir, "golden_cpu"),
                                      cpu_seconds)
         host_lane.result()
+        cpu_lost = finish_cpu_companion(cpu_seed_guard)["lost"]
+        cpu_seed_guard = None
+        print(f"seed guard: first lost frame on the card {card_lost}, on the CPU in float32 "
+              f"with one thread {cpu_lost}", flush=True)
         lanes = []
         mark("the forward pass's and the train step's timings")
         forward_timings(frame_rows["inputs"]["checkpoints"])
@@ -3700,9 +3930,10 @@ def main() -> int:
     finally:
         for lane in lanes:
             lane.stop()
-        if golden_cpu is not None:
-            golden_cpu.kill()
-            golden_cpu.communicate()
+        for child in (golden_cpu, cpu_seed_guard):
+            if child is not None:
+                child.kill()
+                child.communicate()
         shutil.rmtree(out_dir, ignore_errors=True)
 
     (k1, k1_levels), (k2, k2_levels) = time_fast_kernel(k1, loop_ride[0]), time_patch_kernel(k2)
@@ -3716,6 +3947,7 @@ def main() -> int:
                     "parallax_chunked": chunked_parallax["launches"][name],
                     "loop_chunked": chunked_loop["launches"][name],
                     "vo_cli": vo_cli["launches"][name],
+                    "process_frame": process_frame_launches[name],
                     **{path: counts[name] for path, counts in slice_launches.items()}}
         out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

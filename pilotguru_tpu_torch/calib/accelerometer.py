@@ -92,6 +92,15 @@ def window_residuals(params, rot_rates, accelerations, dt_sec, segment_ids, gps_
     return _safe_norm(integ.travel) - integ.reference_distance
 
 
+def window_loss(params, rot_rates, accelerations, dt_sec, segment_ids, gps_speeds,
+                num_segments: int):
+    """The reference's scalar loss with its 1/total_time normalization
+    (velocity.cc:168-170): sum_g r_g^2 over the summed piece durations."""
+    r = window_residuals(params, rot_rates, accelerations, dt_sec, segment_ids, gps_speeds,
+                         num_segments)
+    return (r * r).sum() / dt_sec.to(r.dtype).sum()
+
+
 def precompute_affine_travel(rot_rates, accelerations, dt_sec, segment_ids, gps_speeds,
                              num_segments: int):
     """Per-GPS-interval travel as an affine function of the 9 parameters.

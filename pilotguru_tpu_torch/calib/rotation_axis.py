@@ -98,3 +98,12 @@ def angular_velocities_around_axis(rot_rates, axis):
     """Raw gyro rates [N, 3] projected onto a (near-unit) axis [3]:
     <rate_i, axis> / ||axis||."""
     return rot_rates @ (axis / torch.linalg.vector_norm(axis))
+
+
+def rotations_complementary_to_axis(rot_rates, axis):
+    """Raw gyro rates [N, 3] with their component along ``axis`` [3]
+    removed (GetRotationsComplementaryToAxisDirect, rotation.cc:121-146):
+    rate_i - <rate_i, axis> axis / ||axis||^2."""
+    norm = torch.linalg.vector_norm(axis)
+    along = (rot_rates @ axis)[:, None] * axis[None, :] / (norm * norm)
+    return rot_rates - along

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from pilotguru_tpu_torch.solvers.levenberg_marquardt import levenberg_marquardt
+from pilotguru_tpu_torch.utils import linalg
 from pilotguru_tpu_torch.utils.segments import accumulate_rows
 from pilotguru_tpu_torch.vo.pose import (
     huber_weights,
@@ -225,7 +226,7 @@ def _schur_lm(
         w_hinv = torch.einsum("mkia,mab->mkib", w_pl, h_ll_inv)
         s = p_damped - torch.einsum("mkib,mljb->kilj", w_hinv, w_pl).reshape(6 * k, 6 * k)
         rhs = -g_pose + torch.einsum("mkib,mb->ki", w_hinv, g_l).reshape(-1)
-        dx_p = torch.linalg.solve_ex(s, rhs)[0]
+        dx_p = linalg.solve_ex(s, rhs)[0]
         dx_l = -torch.einsum(
             "mab,mb->ma", h_ll_inv,
             g_l + torch.einsum("mkia,ki->ma", w_pl, dx_p.reshape(k, 6)),

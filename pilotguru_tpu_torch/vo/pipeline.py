@@ -507,15 +507,19 @@ def track_video_segments(
                 else:
                     frame = buf.pop(0)
                     if frame.features is None:
-                        frame.features = tracker.features(frame.gray)
-                        t2 = time.perf_counter()
-                        stages["extract"] += t2 - t1
-                        t1 = t2
-                    kp_norm, desc, valid, kp_level, kp_angle = frame.features
-                    state = tracker.process_features(
-                        kp_norm, desc, valid, frame.frame_id, frame.time_usec,
-                        kp_level, kp_angle,
-                    )
+                        extracting = tracker.feature_seconds
+                        state = tracker.process_frame(frame.gray, frame.frame_id,
+                                                      frame.time_usec)
+                        frame.features = tracker.frame_features
+                        extracted = tracker.feature_seconds - extracting
+                        stages["extract"] += extracted
+                        t1 += extracted
+                    else:
+                        kp_norm, desc, valid, kp_level, kp_angle = frame.features
+                        state = tracker.process_features(
+                            kp_norm, desc, valid, frame.frame_id, frame.time_usec,
+                            kp_level, kp_angle,
+                        )
                     stages["track"] += time.perf_counter() - t1
                     handle_frame(frame, state, tracker.last_track_kp_rows)
                 if state == LOST:

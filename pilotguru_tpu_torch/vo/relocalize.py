@@ -13,6 +13,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pilotguru_tpu_torch.utils import linalg
 from pilotguru_tpu_torch.vo import matching
 from pilotguru_tpu_torch.vo.pose import (
     matrix_to_rotvec,
@@ -45,7 +46,7 @@ def dlt_pose(points3d, obs, weights):
     rows_u = torch.cat([xh, zeros, -u * xh], dim=-1) * w  # [..., n, 12]
     rows_v = torch.cat([zeros, xh, -v * xh], dim=-1) * w
     a = torch.cat([rows_u, rows_v], dim=-2)
-    _, _, vt = torch.linalg.svd(a, full_matrices=False)
+    _, _, vt = linalg.svd(a, full_matrices=False)
     p = vt[..., -1, :].reshape(a.shape[:-2] + (3, 4))
     m = p[..., :3]
     det = torch.linalg.det(m)
@@ -53,7 +54,7 @@ def dlt_pose(points3d, obs, weights):
     scale = sign / (det.abs() ** (1.0 / 3.0) + 1e-30)
     m = m * scale[..., None, None]
     t = p[..., 3] * scale[..., None]
-    um, _, vmt = torch.linalg.svd(m)
+    um, _, vmt = linalg.svd(m)
     r = um @ vmt
     r = r * torch.sign(torch.linalg.det(r))[..., None, None]
     return torch.cat([matrix_to_rotvec(r), t], dim=-1)

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from pilotguru_tpu_torch.utils import linalg
 from pilotguru_tpu_torch.vo.pose import matrix_to_rotvec, rotvec_to_matrix
 from pilotguru_tpu_torch.vo.twoview import draw_samples
 
@@ -93,7 +94,7 @@ def umeyama_sim3(points_a, points_b, weights) -> UmeyamaResult:
     ca = points_a - mu_a[..., None, :]
     cb = points_b - mu_b[..., None, :]
     cov = (cb * w[..., None]).transpose(-1, -2) @ ca  # sum w (b-mub)(a-mua)^T
-    u, sv, vt = torch.linalg.svd(cov)
+    u, sv, vt = linalg.svd(cov)
     d = torch.sign(torch.linalg.det(u) * torch.linalg.det(vt))
     diag = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
     r = (u * diag[..., None, :]) @ vt

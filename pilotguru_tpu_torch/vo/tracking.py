@@ -22,6 +22,7 @@ keyframe inserted mid-chunk when ``chunk_through_keyframes`` is set.
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional
 
@@ -630,13 +631,19 @@ class Keyframe:
 class MonocularTracker:
     """Feature-based monocular odometry over a frame stream.
 
-    ``device``: where the numerics run; ``dtype``: the geometry dtype
-    (default float64 on a CPU device, float32 on CUDA, as ``--dtype auto``)."""
+    ``feature_fn``: what ``process_frame`` extracts a frame's features
+    with, a function of the frame returning (kp_norm, desc, valid) or
+    (kp_norm, desc, valid, kp_level, kp_angle); None means ``features``,
+    the ORB extractor on the tracker's device (K1, then K2 or K3 by
+    ``config.patch_impl`` on the card). ``device``: where the numerics run;
+    ``dtype``: the geometry dtype (default float64 on a CPU device, float32
+    on CUDA, as ``--dtype auto``)."""
 
     def __init__(
         self,
         camera: CameraModel,
         config: TrackerConfig = TrackerConfig(),
+        feature_fn=None,
         device="cuda",
         dtype: Optional[torch.dtype] = None,
     ):
@@ -646,6 +653,12 @@ class MonocularTracker:
         self.dtype = dtype or (
             torch.float64 if self.device.type == "cpu" else torch.float32
         )
+        self._feature_fn = feature_fn
+        # The features process_frame extracted last (the five arrays
+        # process_features takes), and the host seconds its feature_fn
+        # calls took in all (each ends in a device-to-host copy).
+        self.frame_features: Optional[tuple] = None
+        self.feature_seconds = 0.0
         self.state = NOT_INITIALIZED
         # Pixel gates -> normalized-plane units via the focal (unit-test rigs
         # with an fx=1 identity camera convert at 250 px).
@@ -846,6 +859,22 @@ class MonocularTracker:
     def features(self, gray):
         """One frame's features (extract_frame_features' host arrays)."""
         return extract_frame_features(gray, self.camera, self.config, self.device)
+
+    def process_frame(self, gray, frame_id: int, time_usec: int) -> str:
+        """Extract one frame's features with ``feature_fn`` and feed them
+        to ``process_features``. The default extractor scales a uint8 image
+        to [0, 1] (``device_images``). Three arrays from ``feature_fn`` mean no
+        pyramid levels and orientations: both are zeros, which turns
+        octave-aware matching and the rotation-consistency filter into
+        no-ops, as in the reference tracker."""
+        start = time.perf_counter()
+        feats = tuple((self._feature_fn or self.features)(gray))
+        self.feature_seconds += time.perf_counter() - start
+        if len(feats) == 3:
+            k = feats[0].shape[0]
+            feats += (np.zeros(k, np.int32), np.zeros(k, np.float32))
+        self.frame_features = feats
+        return self.process_features(*feats[:3], frame_id, time_usec, *feats[3:])
 
     def process_features(
         self, kp_norm, desc, valid, frame_id: int, time_usec: int,

@@ -1,9 +1,9 @@
 """The smoke's rides over several RANSAC generator seeds, on one NVIDIA card.
 
     python3 ride_seeds.py --ride loop|parallax|golden --seeds 0 1 2 3 4 [--loop-closing off]
-        [--frames N] [--device cuda|cpu] [--dtype float32|float64]
-        [--log PATH] [--swap NAME@cpu|NAME@float64 ...] [--probe-svd]
-        [--nudge N ...]
+        [--frames N] [--device cuda|cpu] [--dtype float32|float64] [--chunked]
+        [--log PATH] [--swap NAME@cpu|NAME@float64|NAME@device ...] [--probe-svd]
+        [--probe-solve] [--nudge N ...] [--features-to PATH | --features-from PATH]
 
 Renders chip_smoke's parallax ride or loop ride at 1280x720, runs
 optical_trajectories' segment loop frame by frame (as the smoke's phases 7
@@ -38,18 +38,39 @@ initialization the model chosen (homography or essential) with its
 inlier count. Logs of the same draws
 on several devices and dtypes show the first frame where the runs part.
 
-``--probe-svd`` measures every torch.linalg.svd call of a run without
-changing it: per calling function, the worst error of its singular values
-(relative to the largest) and of its last right singular vector (its
-angle, radians) against float64 on the CPU, beside the same errors of the CPU's
-SVD in the run's dtype on the same inputs.
+``--probe-svd`` measures every call of the port's SVD entry
+(pilotguru_tpu_torch/utils/linalg.py::svd) of a run without changing it:
+per calling function (and its caller), the worst error of its singular
+values (relative to the largest) and of its last left and right singular
+vectors (their angles, radians) against float64 on the CPU, for the
+entry's result (``entry``), torch.linalg.svd on the input's device in its
+dtype (``device``: the card's route before the entry), the CPU's LAPACK in
+the input's dtype (``cpu``) and, on the card, cuSOLVER's QR-based float64
+route rounded to the input's dtype (``gesvd64``). ``--probe-solve``
+measures every torch.linalg.solve_ex call the same way: the worst error of
+the solution, relative to its largest entry, as computed (``device``) and
+from the CPU's LAPACK in the input's dtype (``cpu``).
 
 ``--swap`` reruns each seed with one stage of the tracker (``twoview``,
 ``track``, ``refkf``, ``create``, ``fuse``, ``ba``) or one operation
-(``svd``: torch.linalg.svd, ``solve``: torch.linalg.solve_ex) computed on
-the CPU in the run's dtype (``@cpu``) or on the run's device in float64
-(``@float64``), its results moved back; ``none`` is the run as it stands.
-The swaps live in this script: the package has no such switch.
+(``svd``: the port's SVD entry, ``solve``: torch.linalg.solve_ex) computed
+on the CPU in the run's dtype (``@cpu``) or on the run's device in float64
+(``@float64``), its results moved back. ``@device`` restores, on the
+card in float32, a route that the package replaced there: ``svd@device``
+computes each SVD with torch.linalg.svd in the input's dtype,
+``solve@device`` local BA's solve with torch.linalg.solve_ex, and
+``twoview@device`` the two-view reconstruction in float32 (the package
+computes it in float64 on the card). ``none`` is the run as it stands; ``A+B`` puts
+two swaps in force at once. The swaps live in this script: the package has
+no such switch.
+
+``--features-to PATH`` saves every frame's features as the run's trackers
+were given them (kp_norm, desc, valid, kp_level, kp_angle, with the
+frame's time; chip_smoke.save_features); ``--features-from PATH`` feeds
+such a file's features to the run's trackers in the place of their own
+extraction, on any device and dtype, frame by frame or ``--chunked``. The
+RANSAC draws come from the tracker's CPU generator, so on the same
+features a run on the CPU draws what a run on the card drew.
 
 ``--nudge N ...`` reruns each seed once per N with every keypoint
 coordinate the tracker receives moved by one float32 ulp, up or down at
@@ -63,6 +84,7 @@ import argparse
 import contextlib
 import dataclasses
 import hashlib
+import inspect
 import itertools
 import json
 import os
@@ -77,6 +99,7 @@ import torch
 
 import chip_smoke
 from pilotguru_tpu_torch.formats.trajectory import read_trajectory
+from pilotguru_tpu_torch.utils import linalg
 from pilotguru_tpu_torch.vo import pipeline, tracking, twoview
 
 STAGES = {
@@ -87,7 +110,7 @@ STAGES = {
     "fuse": "fused_project_match",
     "ba": "bundle_adjust",
 }
-OPS = {"svd": "svd", "solve": "solve_ex"}
+OPS = {"svd": (linalg, "svd"), "solve": (linalg, "solve_ex")}
 
 
 def _moved(obj, device, dtype=None):
@@ -132,69 +155,170 @@ def _swapped_fn(fn, where):
     return wrapper
 
 
+def _device_svd(a, full_matrices=True):
+    """torch.linalg.svd on ``a``'s device in its dtype (svd@device)."""
+    return torch.linalg.svd(a, full_matrices=full_matrices)
+
+
+def _device_solve_ex(a, b):
+    """torch.linalg.solve_ex on ``a``'s device in its dtype (solve@device)."""
+    return torch.linalg.solve_ex(a, b)
+
+
+def _device_two_view(*args, **kwargs):
+    """The two-view reconstruction on its inputs' device in their dtype
+    (twoview@device)."""
+    bound = inspect.signature(twoview.two_view_reconstruction).bind(*args, **kwargs)
+    bound.apply_defaults()
+    return twoview.reconstruct(*bound.args)
+
+
+DEVICE_OPS = {"svd": _device_svd, "solve": _device_solve_ex, "twoview": _device_two_view}
+
+
 @contextlib.contextmanager
 def swapped(spec: str):
-    """The swap ``spec`` ("none", "svd@cpu", "ba@float64", ...) in force."""
+    """The swap ``spec`` ("none", "svd@cpu", "ba@float64", "svd@device",
+    "svd@device+twoview@cpu", ...) in force."""
     if spec == "none":
         yield
         return
+    if "+" in spec:
+        with contextlib.ExitStack() as stack:
+            for part in spec.split("+"):
+                stack.enter_context(swapped(part))
+            yield
+        return
     name, where = spec.split("@")
-    if where not in ("cpu", "float64"):
-        raise ValueError(f"--swap {spec}: want NAME@cpu or NAME@float64")
+    if where not in ("cpu", "float64") and not (where == "device" and name in DEVICE_OPS):
+        raise ValueError(f"--swap {spec}: want NAME@cpu, NAME@float64, svd@device, "
+                         "solve@device or twoview@device")
     if name in STAGES:
         owner, attr = tracking, STAGES[name]
     elif name in OPS:
-        owner, attr = torch.linalg, OPS[name]
+        owner, attr = OPS[name]
     else:
         raise ValueError(f"--swap {spec}: unknown stage or operation {name}")
     original = getattr(owner, attr)
-    setattr(owner, attr, _swapped_fn(original, where))
+    setattr(owner, attr, DEVICE_OPS[name] if where == "device" else _swapped_fn(original, where))
     try:
         yield
     finally:
         setattr(owner, attr, original)
 
 
-def _svd_errors(svd, a, out):
-    """(singular values, last right singular vector) errors of one batched
-    SVD result against float64 on the CPU: the largest |s - s64| / s64[0]
-    and the largest angle (radians, from the chord between the unit
-    vectors, either sign) between the last rows of vt."""
-    a64 = a.detach().to("cpu", torch.float64)
-    _, s64, vt64 = svd(a64)
-    s, vt = out[1].detach().to("cpu", torch.float64), out[2].detach().to("cpu", torch.float64)
+def _angle(a, b):
+    """Angles (radians, either sign) between the unit vectors along the
+    last axis of ``a`` and ``b``, from their chord."""
+    a = a / torch.linalg.vector_norm(a, dim=-1, keepdim=True)
+    b = b / torch.linalg.vector_norm(b, dim=-1, keepdim=True)
+    chord = torch.minimum(torch.linalg.vector_norm(a - b, dim=-1),
+                          torch.linalg.vector_norm(a + b, dim=-1))
+    return 2.0 * torch.asin((chord / 2.0).clamp(max=1.0))
+
+
+def _svd_errors(want, out):
+    """(singular values, last left singular vector, last right singular
+    vector) errors of one batched SVD result ``out`` against ``want``
+    (float64 on the CPU): the largest |s - s64| / s64[0] and the largest
+    angles between the last columns of u and the last rows of vt."""
+    u64, s64, vt64 = want
+    u, s, vt = (t.detach().to("cpu", torch.float64) for t in out)
     s_err = ((s - s64).abs() / s64[..., :1].clamp_min(1e-300)).max()
-    v = vt[..., -1, :] / torch.linalg.vector_norm(vt[..., -1, :], dim=-1, keepdim=True)
-    v64 = vt64[..., -1, :]
-    chord = torch.minimum(torch.linalg.vector_norm(v - v64, dim=-1),
-                          torch.linalg.vector_norm(v + v64, dim=-1))
-    return float(s_err), float((2.0 * torch.asin((chord / 2.0).clamp(max=1.0))).max())
+    u_rad = _angle(u[..., :, s64.shape[-1] - 1], u64[..., :, s64.shape[-1] - 1]).max()
+    v_rad = _angle(vt[..., -1, :], vt64[..., -1, :]).max()
+    return float(s_err), float(u_rad), float(v_rad)
+
+
+def _caller(depth: int = 3, skip: int = 2):
+    """"function < its caller < ..." of the probed call, ``depth`` deep,
+    ``skip`` frames above this one."""
+    f, names = sys._getframe(skip), []
+    while f is not None and len(names) < depth:
+        names.append(f.f_code.co_name)
+        f = f.f_back
+    return " < ".join(names)
+
+
+def _keep_worst(stats, caller, errors: dict):
+    row = stats.setdefault(caller, {"calls": 0})
+    row["calls"] += 1
+    for key, v in errors.items():
+        row[key] = max(row.get(key, 0.0), v)
 
 
 @contextlib.contextmanager
 def probed_svd(stats: dict):
-    """Every torch.linalg.svd call measured (not changed): per caller, the
-    worst errors against float64 of the result as computed and of the same
-    input's SVD on the CPU in the input's dtype."""
-    svd = torch.linalg.svd
+    """Every call of the SVD entry measured (not changed): per caller, the
+    worst errors against float64 on the CPU of the entry's result and of
+    the other routes on the same input (see --probe-svd)."""
+    entry = linalg.svd
 
-    def probe(a, *args, **kwargs):
-        out = svd(a, *args, **kwargs)
-        caller = sys._getframe(1).f_code.co_name
-        here = _svd_errors(svd, a, out)
-        cpu = _svd_errors(svd, a, svd(a.detach().cpu(), *args, **kwargs))
-        row = stats.setdefault(caller, {"calls": 0, "s_err": 0.0, "v_rad": 0.0,
-                                        "cpu_s_err": 0.0, "cpu_v_rad": 0.0})
-        row["calls"] += 1
-        for key, v in zip(("s_err", "v_rad", "cpu_s_err", "cpu_v_rad"), here + cpu):
-            row[key] = max(row[key], v)
+    def probe(a, full_matrices=True):
+        out = entry(a, full_matrices=full_matrices)
+        want = torch.linalg.svd(a.detach().to("cpu", torch.float64),
+                                full_matrices=full_matrices)
+        routes = {"entry": out,
+                  "device": torch.linalg.svd(a.detach(), full_matrices=full_matrices),
+                  "cpu": torch.linalg.svd(a.detach().cpu(), full_matrices=full_matrices)}
+        if a.device.type == "cuda":
+            routes["gesvd64"] = [t.to(a.dtype) for t in torch.linalg.svd(
+                a.detach().to(torch.float64), full_matrices=full_matrices, driver="gesvd")]
+        errors = {}
+        for route, result in routes.items():
+            for key, v in zip(("s_err", "u_rad", "v_rad"), _svd_errors(want, result)):
+                errors[f"{route}_{key}"] = v
+        _keep_worst(stats, _caller(), errors)
         return out
 
-    torch.linalg.svd = probe
+    linalg.svd = probe
     try:
         yield
     finally:
-        torch.linalg.svd = svd
+        linalg.svd = entry
+
+
+@contextlib.contextmanager
+def probed_solve(stats: dict):
+    """Every linear solve measured (not changed): the calls of the port's
+    solve entry and the torch.linalg.solve_ex calls outside it. Per
+    caller, the worst error against float64 on the CPU, relative to the
+    solution's largest entry, of the result, of torch.linalg.solve_ex on
+    the input's device in its dtype, and of the CPU's in that dtype."""
+    entry, solve_ex = linalg.solve_ex, torch.linalg.solve_ex
+    inside = []
+
+    def measure(a, b, result):
+        a, b = a.detach(), b.detach()
+        want = solve_ex(a.to("cpu", torch.float64), b.to("cpu", torch.float64))[0]
+        scale = want.abs().max().clamp_min(1e-300)
+        routes = {"result": result, "device": solve_ex(a, b)[0],
+                  "cpu": solve_ex(a.cpu(), b.cpu())[0]}
+        _keep_worst(stats, _caller(skip=3),
+                    {f"{route}_err": float((x.detach().to("cpu", torch.float64) - want)
+                                           .abs().max() / scale)
+                     for route, x in routes.items()})
+
+    def probe_entry(a, b):
+        inside.append(True)
+        try:
+            out = entry(a, b)
+        finally:
+            inside.pop()
+        measure(a, b, out[0])
+        return out
+
+    def probe_torch(a, b, *args, **kwargs):
+        out = solve_ex(a, b, *args, **kwargs)
+        if not inside:
+            measure(a, b, out[0])
+        return out
+
+    linalg.solve_ex, torch.linalg.solve_ex = probe_entry, probe_torch
+    try:
+        yield
+    finally:
+        linalg.solve_ex, torch.linalg.solve_ex = entry, solve_ex
 
 
 def _floats(values):
@@ -330,12 +454,15 @@ def nudge_features(tracker, nudge_seed: int):
         away = np.where(rng.random(kp_norm.shape) < 0.5, -np.inf, np.inf).astype(np.float32)
         return (np.nextafter(kp_norm, away), *rest)
 
-    tracker.features = nudged
+    tracker._feature_fn = nudged
 
 
 def run_seed(ride, seed, loop_closing, device="cuda", dtype=None, frame_log=None, nudge=None,
-             chunked=False):
-    """One run over ``ride`` (load_ride's); returns its JSON row."""
+             chunked=False, features_to=None, features_from=None):
+    """One run over ``ride`` (load_ride's); returns its JSON row.
+    ``features_to``: a dict that takes every frame's features
+    (chip_smoke.record_features); ``features_from``: such a dict, whose
+    features the trackers are fed in the place of their own extraction."""
     trackers = []
     make = pipeline.tracker_from_settings
     chunk_frames = pipeline.TrackerConfig.track_chunk_frames if chunked else 0
@@ -350,6 +477,8 @@ def run_seed(ride, seed, loop_closing, device="cuda", dtype=None, frame_log=None
             nudge_features(tracker, nudge + len(trackers))
         if frame_log is not None and not trackers:
             instrument(tracker, frame_log)
+        if features_to is not None:
+            chip_smoke.record_features(tracker, features_to)
         trackers.append(tracker)
         return tracker
 
@@ -359,11 +488,14 @@ def run_seed(ride, seed, loop_closing, device="cuda", dtype=None, frame_log=None
         with logged_two_view(frame_log if frame_log is not None else []):
             start = time.perf_counter()
             stages: dict = {}
+            if features_from is not None:
+                frames = chip_smoke.replayed_frames(features_from)
+            else:
+                frames = (pipeline.VideoFrame(g, i, t) for i, (g, t) in enumerate(ride.frames))
             segments, consumed = pipeline.track_video_segments(
-                (pipeline.VideoFrame(g, i, t) for i, (g, t) in enumerate(ride.frames)),
-                ride.settings, out_dir, device=device, dtype=dtype,
+                frames, ride.settings, out_dir, device=device, dtype=dtype,
                 patch_impl=ride.patch_impl, stage_seconds=stages,
-                **({} if chunked else {"feature_batch_size": 0}),
+                **({} if chunked and features_from is None else {"feature_batch_size": 0}),
             )
             if device == "cuda":
                 torch.cuda.synchronize()
@@ -373,8 +505,9 @@ def run_seed(ride, seed, loop_closing, device="cuda", dtype=None, frame_log=None
         pipeline.tracker_from_settings = make
         shutil.rmtree(out_dir, ignore_errors=True)
     row = {"seed": seed, "nudge": nudge, "loop_closing": loop_closing, "chunked": chunked,
-           "device": device, "dtype": str(trackers[0].dtype), "segments": segments,
-           "frames": consumed, "frames_per_s": consumed / seconds,
+           "replayed_features": features_from is not None, "device": device,
+           "dtype": str(trackers[0].dtype), "segments": segments, "frames": consumed,
+           "frames_per_s": consumed / seconds,
            "loop_closures": [t.stats["loop_closures"] for t in trackers],
            "keyframes": [len(t.keyframes) for t in trackers]}
     if chunked:
@@ -431,31 +564,51 @@ def main(argv=None) -> int:
                         "(one run per nudge seed)")
     parser.add_argument("--probe-svd", action="store_true",
                         help="print each SVD call site's errors against float64")
+    parser.add_argument("--probe-solve", action="store_true",
+                        help="print each solve_ex call site's errors against float64")
+    features = parser.add_mutually_exclusive_group()
+    features.add_argument("--features-to", default=None,
+                          help="save every frame's features here (npz)")
+    features.add_argument("--features-from", default=None,
+                          help="feed the trackers the features saved here")
     parser.add_argument("--chunked", action="store_true",
                         help="the segment loop at its defaults: feature prefetch, chunks of 16 "
                         "through keyframes")
     args = parser.parse_args(argv)
     if args.ride == "golden" and args.frames is not None:
         parser.error("--frames cuts a rendered ride; the golden video runs whole")
-    if args.chunked and args.nudge:
-        parser.error("--nudge moves the tracker's own extraction; not with --chunked")
+    if args.nudge and (args.chunked or args.features_from):
+        parser.error("--nudge moves the tracker's own extraction; not with --chunked or "
+                     "--features-from")
+    if args.features_to and len(args.seeds) * len(args.swap) > 1:
+        parser.error("--features-to saves one run's features: give one seed and one swap")
     if args.device == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("ride_seeds measures the card: no CUDA device")
         print(f"card: {chip_smoke.card_name_and_power()}", flush=True)
     ride = load_ride(args.ride, args.frames)
+    features_from = chip_smoke.load_features(args.features_from) if args.features_from else None
     for spec, seed, nudge in itertools.product(args.swap, args.seeds, args.nudge or [None]):
         frame_log = [] if args.log else None
-        svd_stats = {}
-        probe = probed_svd(svd_stats) if args.probe_svd else contextlib.nullcontext()
-        with swapped(spec), probe:
+        svd_stats, solve_stats = {}, {}
+        features_to = {} if args.features_to else None
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(swapped(spec))
+            if args.probe_svd:
+                stack.enter_context(probed_svd(svd_stats))
+            if args.probe_solve:
+                stack.enter_context(probed_solve(solve_stats))
             row = run_seed(ride, seed, args.loop_closing == "on", args.device,
                            args.dtype and getattr(torch, args.dtype), frame_log, nudge,
-                           args.chunked)
+                           args.chunked, features_to, features_from)
+        if features_to is not None:
+            chip_smoke.save_features(args.features_to, features_to)
         head = {"ride": args.ride, "swap": spec}
         print(json.dumps({**head, **row}), flush=True)
         if args.probe_svd:
             print(json.dumps({**head, "seed": seed, "svd_errors": svd_stats}), flush=True)
+        if args.probe_solve:
+            print(json.dumps({**head, "seed": seed, "solve_errors": solve_stats}), flush=True)
         if args.log:
             with open(args.log, "a") as f:
                 for rec in frame_log:

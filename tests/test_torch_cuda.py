@@ -268,14 +268,121 @@ def test_corpus_in_float64_follows_the_cpu_with_hills(cuda):
 
 
 @pytest.mark.cuda
-def test_seed_two_loses_track_where_recorded(cuda):
+def test_seed_two_tracks_as_recorded(cuda):
     """The first 20 parallax frames at RANSAC seed 2 on the card in float32
-    lose track at the recorded frame, as on the CPU in float32: a decision
-    on a rounding-level tie (PERF.md; ROADMAP Queue 3)."""
+    lose track where recorded: nowhere since the card computes its two-view
+    initialization and SVDs in float64, where the CPU's float32 run loses
+    it at frame 13 with one thread and 12 with eight, a decision on a
+    rounding-level tie (PERF.md; ROADMAP Queue 3)."""
     import chip_smoke
 
     lost = chip_smoke.run_seed_guard(list(chip_smoke.render_ride(frames=20)))
     assert lost == chip_smoke.SEED_GUARD["lost_at"]
+
+
+def _golden_two_view_inputs():
+    """The inputs of the tracker's first two-view initialization on the
+    golden mp4's first frames, on the card in float32: (p1, p2, mask) and
+    the RANSAC samples its generator draws."""
+    import chip_smoke
+    from pilotguru_tpu_torch.vo import pipeline, tracking, twoview
+    from pilotguru_tpu_torch.vo.camera import read_camera_settings
+
+    seen = []
+    solve = tracking.two_view_reconstruction
+
+    def recording(p1, p2, mask, generator=None, **kwargs):
+        samples = twoview.draw_samples(mask.to(torch.float32) + 1e-6, 128, 8, generator)
+        seen.append((p1, p2, mask, samples))
+        return solve(p1, p2, mask, samples=samples, **kwargs)
+
+    tracker = pipeline.tracker_from_settings(read_camera_settings(chip_smoke.GOLDEN_CAMERA),
+                                             device="cuda", track_chunk_frames=0)
+    tracking.two_view_reconstruction = recording
+    try:
+        for frame in pipeline.video_frames(chip_smoke.GOLDEN_VIDEO):
+            tracker.process_frame(frame.gray, frame.frame_id, frame.time_usec)
+            if tracker.state != "NOT_INITIALIZED":
+                break
+    finally:
+        tracking.two_view_reconstruction = solve
+    assert seen and seen[0][0].is_cuda and seen[0][0].dtype == torch.float32
+    return seen
+
+
+@pytest.mark.cuda
+def test_svd_entry_is_as_exact_as_lapack_on_ransac_batches(cuda):
+    """Every SVD of a float32 two-view reconstruction on the card
+    (twoview.reconstruct: RANSAC batches of 8-point and 4-point systems,
+    the refit, the pose recovery) on the golden mp4's first frames: per
+    call site, the port's SVD entry lands no further from float64 than the
+    CPU's LAPACK float32 on the same inputs, in the singular values and in
+    the last right singular vector (ride_seeds.py --probe-svd's measures).
+    The tracker itself runs its two-view in float64 on the card; the
+    entry's float32 route serves the Sim(3) fits and relocalization."""
+    import ride_seeds
+    from pilotguru_tpu_torch.utils import linalg
+    from pilotguru_tpu_torch.vo import twoview
+
+    inputs = _golden_two_view_inputs()
+    seen = []
+    entry = linalg.svd
+
+    def recording(a, full_matrices=True):
+        seen.append((ride_seeds._caller(depth=1), a.detach().clone(), full_matrices))
+        return entry(a, full_matrices=full_matrices)
+
+    linalg.svd = recording
+    try:
+        for p1, p2, mask, samples in inputs:
+            twoview.reconstruct(p1, p2, mask, samples, None, 128, 2e-5, 0.40)
+    finally:
+        linalg.svd = entry
+    worst = {}
+    for site, a, full in seen:
+        assert a.is_cuda and a.dtype == torch.float32
+        want = torch.linalg.svd(a.cpu().double(), full_matrices=full)
+        got = ride_seeds._svd_errors(want, linalg.svd(a, full_matrices=full))
+        lapack = ride_seeds._svd_errors(want, torch.linalg.svd(a.cpu(), full_matrices=full))
+        row = worst.setdefault(site, [0.0] * 4)
+        for i, v in enumerate((got[0], got[2], lapack[0], lapack[2])):
+            row[i] = max(row[i], v)
+    assert {"_essential_from_eight", "_homography_from_four"} <= set(worst)
+    for site, (s_err, v_rad, lapack_s, lapack_v) in worst.items():
+        assert s_err <= lapack_s and v_rad <= lapack_v, (site, worst[site])
+
+
+@pytest.mark.cuda
+def test_two_view_on_the_card_follows_the_cpu_in_float64(cuda):
+    """The card's float32 two-view reconstruction, which computes in
+    float64 and rounds, on the golden mp4's first initialization with the
+    same RANSAC samples: the CPU's float64 run's inliers, and its rotation,
+    translation and points within 1e-6, relative for the points (a few
+    float32 ulps)."""
+    from pilotguru_tpu_torch.vo import twoview
+
+    for p1, p2, mask, samples in _golden_two_view_inputs():
+        got = twoview.two_view_reconstruction(p1, p2, mask, samples=samples)
+        want = twoview.two_view_reconstruction(
+            p1.cpu().double(), p2.cpu().double(), mask.cpu(), samples=samples.cpu())
+        assert got.rotation.dtype == torch.float32
+        assert torch.equal(got.inliers.cpu(), want.inliers)
+        for g, w in ((got.rotation, want.rotation), (got.translation, want.translation)):
+            np.testing.assert_allclose(g.cpu().double().numpy(), w.numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got.points3d[want.inliers].cpu().double().numpy(),
+                                   want.points3d[want.inliers].numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_process_frame_runs_k1_and_k2_once_a_frame(cuda):
+    """MonocularTracker(feature_fn=None).process_frame on parallax frames
+    at 2000 features / 8 levels: K1 and K2 once a frame, no plain call, and
+    the run equal to the bit to a features + process_features run
+    (chip_smoke.run_process_frame, the smoke's 9b)."""
+    import chip_smoke
+
+    launches = chip_smoke.run_process_frame(list(chip_smoke.render_ride(frames=12)))
+    assert launches == {"fast_nms": 12, "gather_patches": 12, "gather_blurred_patches": 0}
 
 
 @pytest.mark.cuda
