@@ -149,12 +149,28 @@ Phases (each raises on failure, so the script exits non-zero):
      the CPU in float64: the card's float outputs within ANNOTATION_BARS of
      the CPU's (integrate_motion's float32 within 0.0063 m/s), the
      host-only outputs identical;
+ 15b. the sharded paths (run_sharded_paths), over every visible card, or
+     over cuda:0 twice where only one is visible (sharded_devices): the
+     card's name and power limit and the cards visible; (a) phase 14's
+     corpus over a ("windows",) mesh in float32 and float64 against phase
+     14's unsharded results: the vertical axis, steering and event times
+     equal to the bit, the speeds and forward axis within FIT_LEVEL_BARS
+     (three operations of the windows' solve change their bits with the
+     windows in a call; SHARDED_CORPUS_EXACT's comment); (b)
+     the parallax ride's 150 frames prefetched over the devices, every
+     feature equal to the bit to the one-device prefetcher's, K1 and K2
+     150 launches each (counts set to 0 just before the sharded run); (c)
+     a hyperparams_search group of two PilotNet folds split one net a
+     device against the same group on one device, within
+     SHARDED_SEARCH_BARS; (d) the fit_motion CLI with
+     PILOTGURU_TPU_PROFILE_DIR set, a trace holding the card's kernels and
+     the files of the run without it;
  16. the kernels' times, one level at a time and all levels in one launch,
      each beside its bound, and beside K1 two floors: an empty kernel on
      its grid and a copy of its bytes;
  17. one JSON line with every kernel at the shape the paths give it (all 8
      levels of a 720p frame in one launch): launches
-     on the paths (phases 7, 8, 7c, 9, 9b, 12h and 12i), error against the plain version,
+     on the paths (phases 7, 8, 7c, 9, 9b, 12h, 12i and 15b), error against the plain version,
      device ms, plain ms, the card's bound, a library call's ms where one
      exists; then, last, one JSON object
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -164,7 +180,7 @@ alone (their frames/s are the pair compared). Then five lanes, each a
 spawned process (Lane), run beside the main process: phase 8; 7c's loop
 ride; phases 9 and 9b and phase 10's frame-by-frame golden run; phase 10's
 golden run at the CLI's defaults, its CPU replay (a child process) and
-12i; phases 13 to 15. Phase 10's frame-by-frame CPU run is a child
+12i; phases 13 to 15b. Phase 10's frame-by-frame CPU run is a child
 process beside them, and the main process runs phases 11 to 12c
 and 12e to 12h and 12j. Every lane's result is awaited (a lane that
 raised fails the smoke), then 12d, the forward-pass timings of phase 12
@@ -1645,7 +1661,8 @@ def run_corpus(reps: int = 3):
     FIT_RMSE_BAR and its result equal, bit for bit, to its own
     fit_motion_arrays result. Then preprocess_corpus over the same rides
     written as ride directories, timed with its JSON reading and writing.
-    Returns the rows."""
+    Returns (the rows, (make_imu_ride's (arrays, true speed) of each ride,
+    {dtype name: the last timed call's results})) for phase 15b."""
     import torch
 
     from pilotguru_tpu_torch.calib.corpus import RideArrays, fit_motion_corpus
@@ -1657,7 +1674,7 @@ def run_corpus(reps: int = 3):
     rides = [RideArrays(*arrays) for arrays, _ in made]
     total_s = CORPUS["ride_s"] * len(rides)
     counters = _kernel_counters()
-    rows = []
+    rows, by_dtype = [], {}
     for dtype in (torch.float32, torch.float64):
         config = FitMotionConfig(optimization_iters=CORPUS["iters"], dtype=dtype, device="cuda")
         fit_motion_corpus(rides[:1], config)
@@ -1693,6 +1710,7 @@ def run_corpus(reps: int = 3):
                "best_ride_s_per_s": total_s / min(seconds), "peak_device_mib": peak / 2**20,
                "rmse_m_s": rmses, "equal_to_per_ride": True}
         rows.append(row)
+        by_dtype[row["dtype"]] = results
         print(f"corpus on the card: {json.dumps(row)}", flush=True)
 
     root = tempfile.mkdtemp(prefix="pg_corpus_")
@@ -1725,7 +1743,7 @@ def run_corpus(reps: int = 3):
               flush=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return rows
+    return rows, (made, by_dtype)
 
 
 @contextlib.contextmanager
@@ -2201,11 +2219,283 @@ def run_golden_lane(out_dir):
     return golden, visualized
 
 
-def run_host_lane(parallax_trajectory):
-    """Phases 13 to 15: fit_motion, the corpus and the ride annotation."""
+def run_host_lane(parallax_trajectory, ride):
+    """Phases 13 to 15b: fit_motion, the corpus, the ride annotation and the
+    sharded paths. Returns run_sharded_paths' launches."""
     run_fit_motion()
-    run_corpus()
+    _, corpus = run_corpus()
     run_annotation(parallax_trajectory)
+    return run_sharded_paths(ride, corpus)
+
+
+# ---------------------------------------------------------------------------
+# Phase 15b: the paths the JAX package spreads over every device, each run
+# over sharded_devices() against its one-device run: the corpus's windows
+# (preprocess_corpus --shard_windows), the prefetched features (the VO
+# CLI's default), the search's super-ensemble (hyperparams_search), and the
+# profiler hook of the fit_motion CLI.
+
+# The search group of phase 15b: two folds of one PilotNet each (nets split
+# one a device over two devices), on synthetic 66x200 frames from a numpy
+# seed, one epoch at batch 64.
+SHARDED_SEARCH = {"examples": 256, "val_examples": 64, "batch": 64, "lr": 1e-3}
+# The group sharded against unsharded: per-net losses (relative) and the
+# last checkpoints' parameters and batch statistics (absolute). Not to the
+# bit: the folded batch norm's channel reductions (and cuDNN's grouped
+# convolutions) change with the nets a device holds. About 4 times the
+# first reading on an H100 (PERF.md): 1.16e-6 and 1.23e-5.
+SHARDED_SEARCH_BARS = {"loss_rel": 5e-6, "param_abs": 5e-5}
+
+
+def sharded_devices():
+    """Every visible card, or cuda:0 twice where only one is visible: the
+    list then shows the split, the streams, each shard's launches and the
+    gather on one card (not copies between cards, nor their concurrency)."""
+    from pilotguru_tpu_torch.parallel.mesh import cuda_devices
+
+    cards = cuda_devices()
+    return cards if len(cards) > 1 else cards * 2
+
+
+# The corpus over a mesh against phase 14's unsharded run. The windows'
+# solve and replay run per block, and on the card three of their
+# operations change their bits with the number of windows in a call
+# (corpus_shard_ops.py, PERF.md): cuBLAS's batched products of small
+# matrices (the gyro-rotated accelerations r_pre @ a, the affine travel's
+# and its Jacobian's broadcast products, float32) and CUDA's cumsum along
+# the innermost axis (the pieces' cumulative time). On these level rides
+# rounding decides the window's minimum (FIT_LEVEL_BARS' comment), so the
+# speeds and the forward axis are held to FIT_LEVEL_BARS, the smoke's bars
+# for two runs that differ in rounding; what comes before the windows
+# (vertical axis, steering, event times) must be equal to the bit. The
+# largest differences are printed beside ANNOTATION_BARS'.
+SHARDED_CORPUS_EXACT = ("vertical_axis", "steering_angular_velocities",
+                        "velocity_times_usec", "steering_times_usec")
+
+
+def run_sharded_corpus(corpus, devices) -> dict:
+    """(a) fit_motion_corpus over a ("windows",) mesh of ``devices`` on
+    run_corpus's rides in float32 and float64, against run_corpus's
+    unsharded results: every field's largest difference, whether all are
+    equal to the bit, each ride within FIT_LEVEL_BARS and equal to the bit
+    in SHARDED_CORPUS_EXACT."""
+    import torch
+
+    from pilotguru_tpu_torch.calib.corpus import RideArrays, fit_motion_corpus
+    from pilotguru_tpu_torch.calib.fit_motion import FitMotionConfig
+    from pilotguru_tpu_torch.parallel.mesh import make_mesh
+
+    made, unsharded = corpus
+    rides = [RideArrays(*arrays) for arrays, _ in made]
+    mesh = make_mesh(("windows",), (len(devices),), devices)
+    row = {}
+    for name, dtype in (("float32", torch.float32), ("float64", torch.float64)):
+        config = FitMotionConfig(optimization_iters=CORPUS["iters"], dtype=dtype, device="cuda")
+        start = time.perf_counter()
+        sharded = fit_motion_corpus(rides, config, mesh=mesh)
+        seconds = time.perf_counter() - start
+        worst, level = {}, {}
+        for (_, true_speed), s, u in zip(made, sharded, unsharded[name]):
+            for field in SHARDED_CORPUS_EXACT:
+                if not np.array_equal(getattr(s, field), getattr(u, field)):
+                    raise AssertionError(f"sharded corpus {name}: {field} differs")
+            for field in ("velocities_m_s", "forward_axis", "window_params",
+                          "window_final_loss"):
+                d = float(np.abs(getattr(s, field) - getattr(u, field)).max())
+                worst[field] = max(worst.get(field, 0.0), d)
+            for key, d in _fit_distance(s, u, true_speed).items():
+                level[key] = max(level.get(key, 0.0), d)
+        row[name] = {"seconds": seconds, "max_abs_difference": worst,
+                     "equal": all(d == 0.0 for d in worst.values()),
+                     "fit_distance": level, "bars": FIT_LEVEL_BARS,
+                     "annotation_bars": {k: ANNOTATION_BARS[name][k]
+                                         for k in ("velocities-imu.json", "forward.json")}}
+        over = {k: v for k, v in level.items() if not v <= FIT_LEVEL_BARS[k]}
+        if over:
+            raise AssertionError(f"sharded corpus {name}: over FIT_LEVEL_BARS {over}: "
+                                 f"{json.dumps(row[name])}")
+    return row
+
+
+def run_sharded_prefetch(frames_u8, devices, batch=8) -> dict:
+    """(b) prefetch_features over ``devices`` on the parallax ride's frames
+    at 2000 features / 8 levels, against the one-device prefetcher: every
+    feature and device row equal to the bit, frames in order, and the
+    sharded run's launches (counts set to 0 just before it): K1 and K2 once
+    a frame, K3 never, no plain call on the card."""
+    import torch
+
+    from pilotguru_tpu_torch.vo.pipeline import VideoFrame, camera_and_config, prefetch_features
+
+    camera, config = camera_and_config(ride_settings())
+    counters = _kernel_counters()
+
+    def run(on):
+        frames = (VideoFrame(g, i, 1_000_000 + i * 33_333) for i, g in enumerate(frames_u8))
+        return list(prefetch_features(frames, camera, config, batch, on))
+
+    one = run(devices[0])
+    for c in counters:
+        c.reset()
+    start = time.perf_counter()
+    sharded = run(devices)
+    seconds = time.perf_counter() - start
+    launches = {c.name: c.launches for c in counters}
+    if any(c.plain_cuda_calls for c in counters):
+        raise AssertionError("sharded prefetch: a plain version ran on the card")
+    want = {"fast_nms": len(frames_u8), "gather_patches": len(frames_u8),
+            "gather_blurred_patches": 0}
+    if launches != want:
+        raise AssertionError(f"sharded prefetch: launches {launches}, want {want}")
+    if [f.frame_id for f in sharded] != list(range(len(frames_u8))):
+        raise AssertionError("sharded prefetch: frames out of order")
+    for a, b in zip(sharded, one):
+        same = all(np.array_equal(np.asarray(x.cpu() if torch.is_tensor(x) else x),
+                                  np.asarray(y.cpu() if torch.is_tensor(y) else y))
+                   for x, y in zip(a.features, b.features))
+        same = same and all(x.device == y.device and torch.equal(x, y)
+                            for x, y in zip(a.dev_features, b.dev_features))
+        if not same:
+            raise AssertionError(f"sharded prefetch: frame {a.frame_id} differs from the "
+                                 "one-device prefetcher")
+    return {"frames": len(frames_u8), "batch": batch, "seconds": seconds,
+            "frames_per_s": len(frames_u8) / seconds, "launches": launches, "equal": True}
+
+
+def _search_data(rng, n):
+    return {"frame_img": rng.integers(0, 256, (n, 66, 200, 3), dtype=np.uint8),
+            "forward_axis": rng.normal(0, 1, (n, 3)).astype(np.float32),
+            "steering": rng.normal(0, 0.3, (n, 2)).astype(np.float32)}
+
+
+def run_sharded_search(devices, root) -> dict:
+    """(c) one hyperparams_search group of two folds (one PilotNet each,
+    learning rates 1e-3 and 5e-4, augmentation and dropout on) for one
+    epoch, its nets split over ``devices`` against the same group on the
+    first device: per-net losses and the last checkpoints' parameters
+    within SHARDED_SEARCH_BARS."""
+    from pilotguru_tpu_torch.cli import hyperparams_search
+    from pilotguru_tpu_torch.ml import training
+
+    rng = np.random.default_rng(7)
+    train = _search_data(rng, SHARDED_SEARCH["examples"])
+    val = _search_data(rng, SHARDED_SEARCH["val_examples"])
+    base = {"input_names": ["frame_img", "forward_axis"], "label_names": ["steering"],
+            "net_name": "nvidia", "target_height": 66, "target_width": 200,
+            "label_dimensions": 2, "optimizer": "sgd", "batch_size": SHARDED_SEARCH["batch"],
+            "linear_bias_options": [{"input_name": "forward_axis", "input_dims": 3}],
+            "compute_dtype": "float32", "dropout_prob": 0.2,
+            "max_horizontal_shift_pixels": 0, "train_blur_prob": 0.5,
+            "grayscale_interpolate_prob": 0.2}
+    folds = [dict(base, learning_rate=SHARDED_SEARCH["lr"], settings_id="lr-a"),
+             dict(base, learning_rate=SHARDED_SEARCH["lr"] / 2, settings_id="lr-b")]
+    runs = {}
+    for tag, on in (("one", None), ("sharded", devices)):
+        start = time.perf_counter()
+        hyperparams_search.run_training_group(
+            folds, train, val, epochs=1, num_nets=1, batch_use_prob=1.0,
+            out_root=os.path.join(root, tag, "out"), log_root=os.path.join(root, tag, "log"),
+            device=devices[0], devices=on)
+        logs = {f["settings_id"]: _train_log(os.path.join(root, tag, "log", f["settings_id"]))
+                for f in folds}
+        nets = {f["settings_id"]: _flat_tree(training.load_net(os.path.join(
+            root, tag, "out", f["settings_id"], "model-0-last.msgpack"))) for f in folds}
+        runs[tag] = (time.perf_counter() - start, logs, nets)
+    (one_s, one_logs, one_nets), (sharded_s, sharded_logs, sharded_nets) = runs.values()
+    loss_rel, param_abs = 0.0, 0.0
+    for sid in one_logs:
+        for a, b in zip(sharded_logs[sid], one_logs[sid]):
+            for key in ("train_loss_per_net", "val_loss_per_net"):
+                x, y = np.asarray(a[key]), np.asarray(b[key])
+                if not (np.isfinite(x).all() and x.shape == y.shape == (1,)):
+                    raise AssertionError(f"sharded search: {sid} {key} malformed: {x}")
+                loss_rel = max(loss_rel, float(np.max(np.abs(x - y) / np.abs(y))))
+        for name, value in one_nets[sid].items():
+            param_abs = max(param_abs, float(np.abs(sharded_nets[sid][name] - value).max()))
+    row = {"folds": len(folds), "nets": len(folds), "devices": [str(d) for d in devices],
+           "seconds_one_device": one_s, "seconds_sharded": sharded_s,
+           "loss_rel": loss_rel, "param_abs": param_abs, "bars": SHARDED_SEARCH_BARS}
+    if not (loss_rel <= SHARDED_SEARCH_BARS["loss_rel"]
+            and param_abs <= SHARDED_SEARCH_BARS["param_abs"]):
+        raise AssertionError(f"sharded search: over the bars {json.dumps(row)}")
+    return row
+
+
+def run_profiled_fit_motion(root) -> dict:
+    """(d) the fit_motion CLI on the card over a 300 s ride with
+    PILOTGURU_TPU_PROFILE_DIR set: a torch.profiler trace under
+    <dir>/fit_motion/ holding the card's kernels, and the same files as
+    the run without it."""
+    from pilotguru_tpu_torch.cli import fit_motion
+    from pilotguru_tpu_torch.utils.profiling import PROFILE_DIR_ENV
+
+    arrays, _ = make_imu_ride(CORPUS["ride_s"], seed=0)
+    ride_dir = os.path.join(root, "ride")
+    write_ride_dir(ride_dir, arrays)
+    profile_dir = os.path.join(root, "profile")
+    outputs = {}
+    for traced in (False, True):
+        out = os.path.join(root, "traced" if traced else "plain")
+        os.makedirs(out)
+        argv = [f"--rotations_json={ride_dir}/rotations.json",
+                f"--accelerations_json={ride_dir}/accelerations.json",
+                f"--locations_json={ride_dir}/locations.json",
+                f"--velocities_out_json={out}/velocities.json",
+                f"--steering_out_json={out}/steering.json",
+                f"--forward_axis_out_json={out}/forward.json"]
+        saved = os.environ.pop(PROFILE_DIR_ENV, None)
+        if traced:
+            os.environ[PROFILE_DIR_ENV] = profile_dir
+        try:
+            with _platform("cuda"):
+                start = time.perf_counter()
+                if fit_motion.main(argv) != 0:
+                    raise AssertionError("fit_motion: non-zero exit")
+                seconds = time.perf_counter() - start
+        finally:
+            os.environ.pop(PROFILE_DIR_ENV, None)
+            if saved is not None:
+                os.environ[PROFILE_DIR_ENV] = saved
+        outputs[traced] = ({n: open(os.path.join(out, n), "rb").read()
+                            for n in sorted(os.listdir(out))}, seconds)
+    trace = os.path.join(profile_dir, "fit_motion", "trace.json")
+    if not os.path.isfile(trace):
+        raise AssertionError(f"fit_motion with {PROFILE_DIR_ENV}: no trace at {trace}")
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    row = {"trace_bytes": os.path.getsize(trace), "events": len(events),
+           "card_kernels": kernels, "seconds_plain": outputs[False][1],
+           "seconds_traced": outputs[True][1],
+           "outputs_equal": outputs[True][0] == outputs[False][0]}
+    if kernels == 0 or not row["outputs_equal"]:
+        raise AssertionError(f"fit_motion with {PROFILE_DIR_ENV}: {json.dumps(row)}")
+    return row
+
+
+def run_sharded_paths(ride, corpus):
+    """Phase 15b over sharded_devices(): the card's name and power limit and
+    the visible cards, then (a) to (d). Returns the sharded prefetch's
+    launches."""
+    import torch
+
+    devices = sharded_devices()
+    print(f"phase 15b (sharded paths) on {card_name_and_power()}; "
+          f"{torch.cuda.device_count()} card(s) visible; devices "
+          f"{[str(d) for d in devices]}", flush=True)
+    root = tempfile.mkdtemp(prefix="pg_sharded_")
+    try:
+        rows = {"cards_visible": torch.cuda.device_count(),
+                "devices": [str(d) for d in devices]}
+        rows["corpus"] = run_sharded_corpus(corpus, devices)
+        rows["prefetch"] = run_sharded_prefetch(ride, devices)
+        rows["search"] = run_sharded_search(devices, os.path.join(root, "search"))
+        rows["profiled_fit_motion"] = run_profiled_fit_motion(os.path.join(root, "profile"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 15b, the sharded paths against their one-device runs: {json.dumps(rows)}",
+          flush=True)
+    return rows["prefetch"]["launches"]
 
 
 # The VO CLI in a child process where cv2 cannot be imported: the card
@@ -3895,8 +4185,8 @@ def main() -> int:
             golden_cpu = start_golden_cpu(os.path.join(out_dir, "golden_cpu"))
         else:
             print("no mp4 decoder: the visualization phase is skipped", flush=True)
-        host_lane = Lane("fit_motion, the corpus and the annotation", run_host_lane,
-                         parallax_trajectory)
+        host_lane = Lane("fit_motion, the corpus, the annotation and the sharded paths",
+                         run_host_lane, parallax_trajectory, ride)
         cpu_seed_guard = start_cpu_seed_guard()
         lanes.append(host_lane)
 
@@ -3917,7 +4207,7 @@ def main() -> int:
             golden_cpu = None
             check_golden_against_cpu(*golden_per_frame, os.path.join(out_dir, "golden_cpu"),
                                      cpu_seconds)
-        host_lane.result()
+        sharded_launches = host_lane.result()
         cpu_lost = finish_cpu_companion(cpu_seed_guard)["lost"]
         cpu_seed_guard = None
         print(f"seed guard: first lost frame on the card {card_lost}, on the CPU in float32 "
@@ -3948,6 +4238,7 @@ def main() -> int:
                     "loop_chunked": chunked_loop["launches"][name],
                     "vo_cli": vo_cli["launches"][name],
                     "process_frame": process_frame_launches[name],
+                    "sharded_prefetch": sharded_launches[name],
                     **{path: counts[name] for path, counts in slice_launches.items()}}
         out = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -9,11 +9,17 @@ fit_motion's own pieces (``principal_rotation_axes``,
 own shapes, one ride after another, on ``FitMotionConfig.device``. A
 ride's result is therefore the same, bit for bit, as its
 ``fit_motion_arrays`` result on the same device and dtype.
+
+With a ``mesh`` (parallel/mesh.py, the ``("windows",)`` mesh of
+preprocess_corpus --shard_windows), each ride's windows are solved and
+replayed in contiguous blocks, one a device, and gathered back in window
+order before the cross-window sums, which the JAX package leaves to XLA's
+collectives; the sums therefore keep the unsharded order.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 
@@ -22,6 +28,7 @@ from pilotguru_tpu_torch.calib.fit_motion import (
     FitMotionResult,
     fit_motion_arrays,
 )
+from pilotguru_tpu_torch.parallel.mesh import Mesh
 from pilotguru_tpu_torch.utils.profiling import StageTimer
 
 
@@ -40,9 +47,10 @@ def fit_motion_corpus(
     rides: Sequence[RideArrays],
     config: FitMotionConfig = FitMotionConfig(),
     timer=None,
+    mesh: Optional[Mesh] = None,
 ) -> list[FitMotionResult]:
     """Calibrate every ride of a corpus; one FitMotionResult per ride, in
     order. ``timer`` (a StageTimer) accumulates fit_motion's stages over
-    all rides."""
+    all rides; ``mesh`` spreads each ride's windows over its devices."""
     timer = timer or StageTimer("fit_motion_corpus")
-    return [fit_motion_arrays(*ride, config=config, timer=timer) for ride in rides]
+    return [fit_motion_arrays(*ride, config=config, timer=timer, mesh=mesh) for ride in rides]

@@ -19,6 +19,7 @@ piece decomposition (calib/pieces.py) does.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -35,6 +36,7 @@ from pilotguru_tpu_torch.calib.rotation_axis import (
 )
 from pilotguru_tpu_torch.geometry.quaternion import quat_conjugate, quat_rotate
 from pilotguru_tpu_torch.geometry.strapdown import integrate_motion
+from pilotguru_tpu_torch.parallel.mesh import Mesh, gather_leading_axis, shard_leading_axis
 from pilotguru_tpu_torch.timeseries.smoothing import smooth_time_series
 from pilotguru_tpu_torch.utils.profiling import StageTimer
 
@@ -84,11 +86,16 @@ def _solve_and_reduce(
     num_iters: int,
     min_velocity: float,
     min_rotation_rad: float,
+    mesh: Optional[Mesh] = None,
 ):
     """Window gather and padding, the batched solve, the replay and the
-    cross-window reductions, all on the pieces' device. Returns (LMResult
-    over windows, per-event speed sums [E], per-event counts [E], the
-    forward-axis sum [3])."""
+    cross-window reductions on the pieces' device. With a ``mesh`` of
+    several devices, the solve and the replay run on its devices, each on
+    a contiguous block of windows (parallel/mesh.py), and their results
+    are gathered back in window order: every window's arithmetic and every
+    reduction are the unsharded run's. Returns (LMResult over windows,
+    per-event speed sums [E], per-event counts [E], the forward-axis sum
+    [3])."""
     dtype, device = piece_rot.dtype, piece_rot.device
     num_pieces = piece_rot.shape[0]
 
@@ -111,11 +118,16 @@ def _solve_and_reduce(
     wvalid = widx < (window_start[:, None] + batch_size).clamp_max(num_gps)
     gps_speeds_w = torch.where(wvalid, gps_speeds[widx.clamp_max(num_gps - 1)], 0.0)
 
-    sol = solve_windows(rot_rates, accelerations, dt_sec, segment_ids, gps_speeds_w,
-                        batch_size, num_iters=num_iters)
-    replay = integrate_motion(rot_rates, accelerations, dt_sec, sol.x[:, 0:3],
-                              sol.x[:, 3:6], sol.x[:, 6:9])
-    orient, vel = replay.orientations, replay.velocities
+    windows = (rot_rates, accelerations, dt_sec, segment_ids, gps_speeds_w)
+    if mesh is None or mesh.size == 1:
+        sol, orient, vel = _solve_and_replay(*windows, batch_size, num_iters)
+    else:
+        # Each device solves and replays its contiguous block of windows;
+        # the blocks come back in window order before any cross-window sum.
+        blocks = [b for b in shard_leading_axis(windows, mesh, mesh.axis_names[0])
+                  if b[0].shape[0] > 0]
+        sol, orient, vel = gather_leading_axis(
+            [_solve_and_replay(*b, batch_size, num_iters) for b in blocks], device)
     speeds = torch.linalg.vector_norm(vel, dim=-1)  # [W, P]
 
     # Cross-window per-event speed averaging: each window contributes each
@@ -135,6 +147,18 @@ def _solve_and_reduce(
     v_local = quat_rotate(quat_conjugate(orient), vel)  # [W, P, 3]
     forward_total = (v_local * ev_gate[..., None]).sum(dim=(0, 1))
     return sol, ev_sum, ev_count, forward_total
+
+
+def _solve_and_replay(rot_rates, accelerations, dt_sec, segment_ids, gps_speeds,
+                      batch_size: int, num_iters: int):
+    """The batched solve of windows [W, P] and the replay of each window
+    under its solution: (LMResult, orientations [W, P, 4], velocities
+    [W, P, 3]), on the windows' device."""
+    sol = solve_windows(rot_rates, accelerations, dt_sec, segment_ids, gps_speeds,
+                        batch_size, num_iters=num_iters)
+    replay = integrate_motion(rot_rates, accelerations, dt_sec, sol.x[:, 0:3],
+                              sol.x[:, 3:6], sol.x[:, 6:9])
+    return sol, replay.orientations, replay.velocities
 
 
 def build_window_index(ride, gps_times_usec, batch_size: int, shift_step: int):
@@ -164,11 +188,15 @@ def fit_motion_arrays(
     gps_speeds,
     config: FitMotionConfig = FitMotionConfig(),
     timer=None,
+    mesh: Optional[Mesh] = None,
 ) -> FitMotionResult:
     """Run the whole pipeline on in-memory arrays (host numpy in, host
     numpy out). Pass a utils.profiling.StageTimer for per-stage wall times;
     each stage ends with its results on the host or a synchronisation, so
-    the times are the device's too."""
+    the times are the device's too. ``mesh`` (parallel/mesh.py) spreads the
+    windows' solve and replay over its devices (``_solve_and_reduce``);
+    the rest runs on ``config.device``, and the result is the unsharded
+    one."""
     timer = timer or StageTimer("fit_motion")
     dtype, device = config.dtype, torch.device(config.device)
 
@@ -200,6 +228,7 @@ def fit_motion_arrays(
             num_events=ride.num_events, num_iters=config.optimization_iters,
             min_velocity=float(config.forward_axis_inference_min_velocity_m_s),
             min_rotation_rad=float(config.forward_axis_inference_min_rotation_rad),
+            mesh=mesh,
         )
         ev_sum = ev_sum.cpu().numpy()
         ev_count = ev_count.cpu().numpy()

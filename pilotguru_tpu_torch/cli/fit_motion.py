@@ -5,7 +5,8 @@ pilotguru_tpu.cli.fit_motion; same input and output JSON formats. The
 sliding-window calibration runs as one batched Gauss-Newton program
 instead of one L-BFGS per window. The device comes from
 PILOTGURU_TPU_PLATFORM (cpu | cuda, default cuda); ``--dtype auto`` is
-float64 on the CPU and float32 on CUDA.
+float64 on the CPU and float32 on CUDA. With PILOTGURU_TPU_PROFILE_DIR set,
+the run writes a torch.profiler trace under <dir>/fit_motion/.
 
 Note on --optimization_iters: the reference's default of 500 is an L-BFGS
 budget; Gauss-Newton converges in tens of iterations, so the default here
@@ -54,7 +55,7 @@ def main(argv=None):
 
     from pilotguru_tpu_torch.calib.fit_motion import FitMotionConfig, fit_motion_arrays
     from pilotguru_tpu_torch.formats import json_io, keys
-    from pilotguru_tpu_torch.utils.profiling import StageTimer
+    from pilotguru_tpu_torch.utils.profiling import StageTimer, maybe_profiler_trace
     from pilotguru_tpu_torch.utils.strings import format_sequence
 
     rot_times, rot_rates = json_io.read_timestamped_3d(args.rotations_json, keys.ROTATIONS)
@@ -75,8 +76,9 @@ def main(argv=None):
         device=device.type,
     )
     timer = StageTimer("fit_motion")
-    result = fit_motion_arrays(rot_times, rot_rates, acc_times, accs, gps_times, gps_speeds,
-                               config, timer=timer)
+    with maybe_profiler_trace("fit_motion"):
+        result = fit_motion_arrays(rot_times, rot_rates, acc_times, accs, gps_times,
+                                   gps_speeds, config, timer=timer)
     if args.print_timings:
         timer.report(out=sys.stderr)
 

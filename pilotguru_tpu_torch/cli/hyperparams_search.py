@@ -11,8 +11,10 @@ learning rate rides its nets' lr_scale (exact: the SGD and Adam updates
 are linear in the learning rate), and each fold's log and checkpoints land
 in its own directories under --log_dir and --out_dir.
 
-One card runs a group; several visible cards raise NotImplementedError
-(the JAX package shards the group's nets over its device mesh).
+With several visible cards (CUDA_VISIBLE_DEVICES chooses them), a group
+whose net count the card count divides is split into contiguous blocks of
+nets, one a card, as the JAX package shards the net axis over its mesh
+(ml/training.py: train_models); another group runs on the first card.
 --parallelism and --cuda_device_ids are accepted and ignored; --dtype is
 accepted for compatibility and unused. A settings JSON may add
 "compute_dtype" (float32 | bfloat16), which then joins the group's
@@ -86,9 +88,12 @@ def run_training_group(
     log_root: str,
     preload_dir=None,
     device="cuda",
+    devices=None,
 ):
     """Train all folds of one program group as one super-ensemble of
-    len(folds) * num_nets nets on ``device``."""
+    len(folds) * num_nets nets on ``device``, or, given ``devices`` (more
+    than one, their count dividing the net count), split over them in
+    contiguous blocks of nets; otherwise on the first of ``devices``."""
     import torch
 
     from pilotguru_tpu_torch.ml import augmentation as aug
@@ -146,6 +151,10 @@ def run_training_group(
     tx = training.make_optimizer(train_settings.optimizer, base_lr)
 
     total_nets = len(folds) * num_nets
+    if devices is not None:
+        device = devices[0]
+        if len(devices) < 2 or total_nets % len(devices) != 0:
+            devices = None
     state = training.init_ensemble(model, example, total_nets, tx, device=device)
 
     # Per-fold learning rates through lr_scale, so a learning-rate sweep
@@ -194,7 +203,7 @@ def run_training_group(
         model, state, tx, train_data, val_data,
         input_names=input_names, label_name=label_name, weighters=weighters,
         settings=train_settings, out_dir=out_root, print_log=False,
-        net_out_specs=net_out_specs,
+        net_out_specs=net_out_specs, devices=devices,
     )
 
     # Per-fold scalar logs: the super-ensemble's curves sliced apart.
@@ -226,6 +235,16 @@ def run_training_group(
                 )
 
 
+def search_devices(device):
+    """The devices a group may spread over: every visible card on CUDA, the
+    one CPU device on the CPU."""
+    if device.type != "cuda":
+        return [device]
+    from pilotguru_tpu_torch.parallel.mesh import cuda_devices
+
+    return cuda_devices()
+
+
 def main(argv=None):
     parser = make_parser(__doc__)
     parser.add_argument("--data_dirs", required=True)
@@ -243,13 +262,7 @@ def main(argv=None):
     add_dtype_flag(parser)
     args = parser.parse_args(argv)
     device, _ = setup_device(args.dtype)
-    if device.type == "cuda":
-        import torch
-
-        if torch.cuda.device_count() > 1:
-            raise NotImplementedError(
-                "hyperparams_search runs a group on one card; several visible cards "
-                "(the JAX package's mesh sharding) are not ported")
+    devices = search_devices(device)
 
     from pilotguru_tpu_torch.ml import data as data_lib
 
@@ -281,7 +294,7 @@ def main(argv=None):
             out_root=args.out_dir,
             log_root=args.log_dir,
             preload_dir=args.preload_dir,
-            device=device,
+            devices=devices,
         )
         for settings in folds:
             print(settings["settings_id"])

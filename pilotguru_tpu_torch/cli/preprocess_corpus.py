@@ -8,17 +8,16 @@ the device, no shape buckets), and the usual postprocessed/ outputs
 ride; --process_can_data also converts each ride's can_frames.json, as
 preprocess_all does. The device comes from PILOTGURU_TPU_PLATFORM (cpu |
 cuda, default cuda); ``--dtype auto`` is float64 on the CPU and float32 on
-CUDA. --shard_windows runs unsharded on one device and raises on several:
-splitting the windows over several cards is not ported (ROADMAP.md,
-Queue 1).
+CUDA. --shard_windows spreads each ride's windows over a ``("windows",)``
+mesh of every visible card (CUDA_VISIBLE_DEVICES chooses them), or of the
+one CPU device under PILOTGURU_TPU_PLATFORM=cpu; the files it writes are
+the unsharded run's.
 """
 
 from __future__ import annotations
 
 import os
 import sys
-
-import torch
 
 from pilotguru_tpu_torch.cli._common import add_dtype_flag, make_parser, setup_device
 
@@ -48,12 +47,6 @@ def main(argv=None):
     add_dtype_flag(parser)
     args = parser.parse_args(argv)
     device, dtype = setup_device(args.dtype)
-    if args.shard_windows and device.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            "--shard_windows over several CUDA devices is not ported to "
-            "pilotguru_tpu_torch (ROADMAP.md, Queue 1: multi-card --shard_windows); "
-            "make one device visible (CUDA_VISIBLE_DEVICES) to run unsharded"
-        )
 
     from pilotguru_tpu_torch.calib.corpus import RideArrays, fit_motion_corpus
     from pilotguru_tpu_torch.calib.fit_motion import FitMotionConfig
@@ -76,6 +69,13 @@ def main(argv=None):
             parser.error(f"incomplete ride directory {d}: {e.filename} missing")
         rides.append(RideArrays(rot_t, rot, acc_t, acc, gps_t, gps_v))
 
+    mesh = None
+    if args.shard_windows:
+        from pilotguru_tpu_torch.parallel.mesh import cuda_devices, make_mesh
+
+        devices = cuda_devices() if device.type == "cuda" else [device]
+        mesh = make_mesh(("windows",), (len(devices),), devices)
+
     config = FitMotionConfig(
         locations_batch_size=args.locations_batch_size,
         locations_shift_step=args.locations_shift_step,
@@ -84,7 +84,7 @@ def main(argv=None):
         device=device.type,
     )
     timer = StageTimer("preprocess_corpus")
-    results = fit_motion_corpus(rides, config, timer=timer)
+    results = fit_motion_corpus(rides, config, timer=timer, mesh=mesh)
 
     for d, result in zip(ride_dirs, results):
         out_dir = os.path.join(d, args.out_subdir)

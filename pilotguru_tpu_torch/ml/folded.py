@@ -20,12 +20,16 @@ each net's flatten keeps the flax (h, w, c) order. The convolutions and
 products are cuDNN's and cuBLAS's, as the JAX package leaves them to XLA.
 
 Dropout draws one mask over the folded channels from the given generator,
-as the JAX package's folded path draws one over its folded channels.
+as the JAX package's folded path draws one over its folded channels. A
+block of nets of a larger ensemble (the sharded train step, ml/training.py)
+takes its slices of the whole ensemble's masks instead
+(``ensemble_dropout_masks``, ``block_dropout_masks``), so each net keeps
+the draws it has unsharded.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -91,17 +95,55 @@ def _ordered(params, prefix):
                   key=lambda s: int(s.split("_")[1]))
 
 
+def _dropout_prob(model, train: bool) -> float:
+    return model.options.get(models_lib.DROPOUT_PROB, 0.0) if train else 0.0
+
+
+def ensemble_dropout_masks(model, params: Dict, num_nets: int, batch: int,
+                           generator: torch.Generator) -> List[torch.Tensor]:
+    """The dropout masks ``folded_forward`` draws in train mode for an
+    ensemble of ``num_nets`` nets shaped like ``params`` (the stacked
+    trees of any block of it) on ``batch`` examples, in its order, from
+    ``generator`` on its device: one [B, N * C, 1, 1] per conv block, then
+    FcBlock_0's [B, N, G]. Empty when the model has no dropout."""
+    p_drop = _dropout_prob(model, True)
+    if p_drop <= 0:
+        return []
+    dtype = models_lib.resolve_compute_dtype(model.options, generator.device)
+    shapes = [(batch, num_nets * params[name]["Conv_0"]["kernel"].shape[-1], 1, 1)
+              for name in _ordered(params, "ConvBlock_")]
+    fc0 = _ordered(params, "FcBlock_")[0]
+    shapes.append((batch, num_nets, params[fc0]["Dense_0"]["kernel"].shape[-1]))
+    return [_dropout_mask(generator, shape, p_drop, dtype, generator.device) for shape in shapes]
+
+
+def block_dropout_masks(masks: List[torch.Tensor], num_nets: int, lo: int, hi: int,
+                        device) -> List[torch.Tensor]:
+    """Nets lo..hi's slices of ``ensemble_dropout_masks``, on ``device``."""
+    out = []
+    for mask in masks:
+        if mask.dim() == 4:  # folded conv channels, net-major
+            width = mask.shape[1] // num_nets
+            out.append(mask[:, lo * width:hi * width].to(device))
+        else:
+            out.append(mask[:, lo:hi].to(device))
+    return out
+
+
 def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, torch.Tensor],
-                   train: bool, generator: torch.Generator = None) -> Tuple[torch.Tensor, Dict]:
+                   train: bool, generator: torch.Generator = None,
+                   dropout_masks: Optional[List[torch.Tensor]] = None
+                   ) -> Tuple[torch.Tensor, Dict]:
     """Run the stacked-[N]-leaf ensemble as one folded program.
 
     model: the foldable net (its options and LinearBias inputs are read);
     params / batch_stats: stacked per-net trees; inputs: FRAME_IMG
     [B, H, W, C] float and the LinearBias inputs [B, D]; train: batch-norm
     and dropout mode; generator: dropout's draws (when its rate > 0 and
-    train). Returns (out [N, B, label_dims] in float32, or in the compute
-    dtype where it is wider, and the new batch_stats stacked like the
-    input's; the input's in eval mode)."""
+    train), or ``dropout_masks``, the masks themselves in draw order
+    (``block_dropout_masks``). Returns (out [N, B, label_dims] in float32,
+    or in the compute dtype where it is wider, and the new batch_stats
+    stacked like the input's; the input's in eval mode)."""
     options = model.options
     blocks = options.get(models_lib.LAYER_BLOCKS_OPTIONS,
                          models_lib.DEFAULT_LAYER_BLOCKS_OPTIONS)
@@ -110,7 +152,14 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
     if (blocks[models_lib.CONV][models_lib.ACTIVATION] != models_lib.RELU
             or blocks[models_lib.FC][models_lib.ACTIVATION] != models_lib.RELU):
         raise NotImplementedError("folded path supports relu trunks only")
-    p_drop = options.get(models_lib.DROPOUT_PROB, 0.0) if train else 0.0
+    p_drop = _dropout_prob(model, train)
+    masks = iter(dropout_masks) if dropout_masks is not None else None
+
+    def drop(x, shape):
+        if masks is not None:
+            return x * next(masks)
+        return x * _dropout_mask(generator, shape, p_drop, x.dtype, x.device)
+
     frame = inputs[models_lib.FRAME_IMG]
     dtype = models_lib.resolve_compute_dtype(options, frame.device)
     strides = _FOLDABLE_STRIDES[options[models_lib.NET_NAME]]
@@ -148,8 +197,7 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
         x = F.relu(x)
         if p_drop > 0:
             # DROPOUT_2D: whole channels (one draw per example and channel).
-            x = x * _dropout_mask(generator, (x.shape[0], x.shape[1], 1, 1), p_drop,
-                                  x.dtype, x.device)
+            x = drop(x, (x.shape[0], x.shape[1], 1, 1))
 
     # ------------------------------------------------- flatten per net
     bsz, nc, h, w = x.shape
@@ -167,7 +215,7 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
         # Only FcBlock_0 carries dropout (NvidiaSingleFrameNet gives the
         # others 0), one draw per activation.
         if p_drop > 0 and j == 0:
-            x = x * _dropout_mask(generator, x.shape, p_drop, x.dtype, x.device)
+            x = drop(x, x.shape)
 
     # ------------------------------------------- label head + LinearBias
     wk = params["Dense_0"]["kernel"].to(dtype)  # [N, head, L]

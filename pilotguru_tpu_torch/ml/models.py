@@ -124,7 +124,9 @@ def dropout(x: torch.Tensor, kind: str, rate: float, generator: torch.Generator)
         raise ValueError("dropout in train mode needs an explicit torch.Generator")
     keep = 1.0 - rate
     shape = x.shape[:2] + (1,) * (x.dim() - 2) if kind == DROPOUT_2D else x.shape
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    # Drawn on the generator's device, so that nets of a sharded ensemble
+    # on other devices take the draws they take unsharded (ml/training.py).
+    mask = (torch.rand(shape, generator=generator, device=generator.device) < keep).to(x.device)
     if kind == DROPOUT_ALPHA:
         a = (keep + _ALPHA_PRIME ** 2 * keep * (1 - keep)) ** -0.5
         b = -a * _ALPHA_PRIME * (1 - keep)

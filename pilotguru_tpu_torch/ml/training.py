@@ -50,7 +50,7 @@ import json
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -66,6 +66,12 @@ from pilotguru_tpu_torch.ml.augmentation import (
     draw_augmentation,
 )
 from pilotguru_tpu_torch.ml.convert import tree_map
+from pilotguru_tpu_torch.parallel.mesh import (
+    block_bounds,
+    gather_leading_axis,
+    make_mesh,
+    shard_leading_axis,
+)
 from pilotguru_tpu_torch.utils import msgpack
 
 ADAM = "adam"
@@ -264,24 +270,33 @@ def _float_images(inputs):
 
 def make_train_step(model, tx, settings: TrainSettings):
     """The ensemble train step: step(state, inputs, labels, weights,
-    use_mask, generator) -> (state, mean_loss [N], per_example [N, B]).
+    use_mask, generator, draws=None, dropout_masks=None) -> (state,
+    mean_loss [N], per_example [N, B]).
 
     inputs: dict of [B, ...] tensors on the state's device (frame images may
     be uint8: they become float /255 there); labels [B, L]; weights [N, B];
     use_mask [N] bool; generator: the device's draws for augmentation, then
-    dropout. The gradient is taken of the sum of the nets' losses, each
-    net's own gradient since their parameters are independent."""
+    dropout. A block of a sharded ensemble gets the augmentation's
+    ``draws`` and the folded path's ``dropout_masks`` made for the whole
+    ensemble (``train_models``). The gradient is taken of the sum of the
+    nets' losses, each net's own gradient since their parameters are
+    independent."""
     forward = _forward_for(model)
 
-    def step(state: EnsembleState, inputs, labels, weights, use_mask, generator):
+    def step(state: EnsembleState, inputs, labels, weights, use_mask, generator, draws=None,
+             dropout_masks=None):
         images = _float_images(inputs)
-        draws = draw_augmentation(generator, images.shape[0], settings.augment, images.device)
+        if draws is None:
+            draws = draw_augmentation(generator, images.shape[0], settings.augment,
+                                      images.device)
         images, labels = augment_batch(images, labels, settings.augment, draws)
         net_inputs = dict(inputs)
         net_inputs[models_lib.FRAME_IMG] = images
 
         params = tree_map(lambda t: t.detach().requires_grad_(True), state.params)
-        out, new_stats = forward(model, params, state.batch_stats, net_inputs, True, generator)
+        masks = {} if dropout_masks is None else {"dropout_masks": dropout_masks}
+        out, new_stats = forward(model, params, state.batch_stats, net_inputs, True, generator,
+                                 **masks)
         per_example = power_loss(out, labels, settings.loss_norm_pow)  # [N, B]
         losses = torch.mean(per_example * weights, dim=1)  # [N]
         leaves = list(_leaves(params))
@@ -405,6 +420,7 @@ def train_models(
     print_log: bool = True,
     log_path: Optional[str] = None,
     net_out_specs: Optional[List[tuple]] = None,
+    devices: Optional[Sequence] = None,
 ) -> List[TrainLogEvent]:
     """The training loop of TrainModels (optimize.py:77-212) on the state's
     device.
@@ -412,7 +428,20 @@ def train_models(
     ``net_out_specs``: optional per-net (directory, local_index) checkpoint
     routing, for the grouped hyperparameter search, where one
     super-ensemble trains several grid folds and each fold's nets land in
-    that fold's directory under fold-local names."""
+    that fold's directory under fold-local names.
+
+    ``devices``: with more than one, the nets are split into contiguous
+    blocks, one a device (parallel/mesh.py; the JAX package shards the
+    state's net axis over its mesh). Each device runs the train and eval
+    steps for its nets on the same batch, copied to it; each net's
+    checkpoint is written from its device. The draws stay the unsharded
+    run's: the augmentation is drawn once, on the state's device, from the
+    one generator and copied to every device; the folded path's dropout
+    masks are drawn there for the whole ensemble and sliced by block
+    (ml/folded.py), and the per-net path draws each net's masks from the
+    same generator in net order (ml/models.py: ``dropout``). The host's
+    bookkeeping (weights [N, B], skip mask, lr_scale, plateau counters,
+    losses) is sliced by block and gathered back in net order."""
     num_nets = len(weighters)
     if net_out_specs is None:
         net_out_specs = [(out_dir, n) for n in range(num_nets)]
@@ -422,18 +451,32 @@ def train_models(
     host_rng = np.random.default_rng(settings.seed)
     generator = torch.Generator(device=device).manual_seed(settings.seed + 1)
 
+    # The net blocks: (lo, hi, device, state), one a device that holds nets.
+    if devices is not None and len(devices) > 1:
+        mesh = make_mesh(("ensemble",), None, devices)
+        blocks = [(lo, hi, dev, part) for (lo, hi), dev, part in zip(
+            block_bounds(num_nets, mesh.size), mesh.devices,
+            shard_leading_axis(state, mesh, "ensemble")) if hi > lo]
+    else:
+        blocks = [(0, num_nets, device, state)]
+    sharded = len(blocks) > 1
+    block_devices = list(dict.fromkeys(dev for _, _, dev, _ in blocks))
+    folded_dropout = sharded and folded.foldable(model)
+
     num_train = train_data[label_name].shape[0]
     num_val = val_data[label_name].shape[0]
 
     def gather_batch(dataset, idx):
-        # Frame images stay uint8 through the host-to-device copy; the
-        # steps convert them on the device.
-        inputs = {name: torch.as_tensor(dataset[name][idx]).to(device, non_blocking=True)
-                  for name in input_names}
+        """The batch on every block's device (one host-to-device copy a
+        device). Frame images stay uint8 through the copy; the steps convert
+        them on the device."""
+        inputs = {name: torch.as_tensor(dataset[name][idx]) for name in input_names}
         labels = np.asarray(dataset[label_name][idx], np.float32)
         if labels.ndim == 1:
             labels = labels[:, None]
-        return inputs, torch.as_tensor(labels).to(device, non_blocking=True)
+        labels = torch.as_tensor(labels)
+        return {dev: ({k: v.to(dev, non_blocking=True) for k, v in inputs.items()},
+                      labels.to(dev, non_blocking=True)) for dev in block_devices}
 
     log: List[TrainLogEvent] = []
     min_val_losses = np.full((num_nets,), np.inf)
@@ -447,13 +490,40 @@ def train_models(
     log_file = open(log_path, "a") if log_path else None
 
     def stage_batch(idx):
-        """Batch k + 1 gathered and sent to the device while the device
-        still runs batch k (the copies are asynchronous)."""
-        inputs, labels = gather_batch(train_data, idx)
+        """Batch k + 1 gathered and sent to the devices while they still
+        run batch k (the copies are asynchronous)."""
+        batch = gather_batch(train_data, idx)
         weights = np.stack([w.get_weights(idx) for w in weighters]).astype(np.float32)
         use_mask = host_rng.uniform(size=num_nets) < settings.batch_use_prob
-        weights = torch.as_tensor(weights).to(device, non_blocking=True)
-        return (inputs, labels, weights), use_mask, idx
+        weights = [torch.as_tensor(weights[lo:hi]).to(dev, non_blocking=True)
+                   for lo, hi, dev, _ in blocks]
+        return batch, weights, use_mask, idx
+
+    def run_train_step(batch, weights, use_mask):
+        """Every block's step; returns (losses [N], per_example [N, B]) on
+        the state's device."""
+        draws = masks = None
+        if sharded:
+            size = next(iter(batch.values()))[1].shape[0]
+            draws = draw_augmentation(generator, size, settings.augment, device)
+            if folded_dropout:
+                masks = folded.ensemble_dropout_masks(model, blocks[0][3].params, num_nets,
+                                                      size, generator)
+        results = []
+        for b, (lo, hi, dev, part) in enumerate(blocks):
+            inputs, labels = batch[dev]
+            part, losses, per_example = train_step(
+                part, inputs, labels, weights[b], torch.as_tensor(use_mask[lo:hi], device=dev),
+                generator,
+                draws=None if draws is None else type(draws)(
+                    *(None if t is None else t.to(dev) for t in draws)),
+                dropout_masks=None if masks is None else folded.block_dropout_masks(
+                    masks, num_nets, lo, hi, dev))
+            blocks[b] = (lo, hi, dev, part)
+            results.append((losses, per_example))
+        if not sharded:
+            return results[0]
+        return gather_leading_axis(results, device)
 
     for epoch in range(settings.epochs):
         epoch_start = time.time()
@@ -467,14 +537,12 @@ def train_models(
         nxt = next(batch_iter, None)
         staged = stage_batch(nxt) if nxt is not None else None
         while staged is not None:
-            (inputs, labels, weights), use_mask, idx = staged
+            batch, weights, use_mask, idx = staged
             nxt = next(batch_iter, None)
             staged = stage_batch(nxt) if nxt is not None else None
             if not use_mask.any():
                 continue
-            state, losses, per_example = train_step(
-                state, inputs, labels, weights, torch.as_tensor(use_mask, device=device),
-                generator)
+            losses, per_example = run_train_step(batch, weights, use_mask)
             pending.append((idx, use_mask, losses, per_example))
         for idx, use_mask, losses, per_example in pending:
             losses_np = losses.cpu().numpy()
@@ -493,8 +561,9 @@ def train_models(
 
         val_total = np.zeros((num_nets,))
         for idx in data_lib.batches(num_val, settings.batch_size, None):
-            inputs, labels = gather_batch(val_data, idx)
-            val_total += eval_step(state, inputs, labels).cpu().numpy() * len(idx)
+            batch = gather_batch(val_data, idx)
+            val_losses = [eval_step(part, *batch[dev]) for _, _, dev, part in blocks]
+            val_total += torch.cat([v.to(device) for v in val_losses]).cpu().numpy() * len(idx)
         val_avg = val_total / max(num_val, 1)
         val_avg_all = float(val_avg.mean())
 
@@ -510,13 +579,16 @@ def train_models(
                 min_val_losses[n] = val_avg[n]
                 plateau_counters[n] = 0
                 spec_dir, spec_idx = net_out_specs[n]
-                save_net(state, n, data_lib.model_file_name(spec_dir, spec_idx, data_lib.BEST))
+                _save_from_block(blocks, n, data_lib.model_file_name(spec_dir, spec_idx,
+                                                                     data_lib.BEST))
             elif settings.plateau_patience_epochs > 0:
                 plateau_counters[n] += 1
                 if plateau_counters[n] > settings.plateau_patience_epochs:
                     lr_scale[n] *= 0.5
                     plateau_counters[n] = 0
-        state = state._replace(lr_scale=torch.as_tensor(lr_scale, device=device))
+        blocks = [(lo, hi, dev, part._replace(lr_scale=torch.as_tensor(lr_scale[lo:hi],
+                                                                       device=dev)))
+                  for lo, hi, dev, part in blocks]
 
         event = TrainLogEvent(
             epoch, avg_loss, val_avg_all, epoch_duration, examples_per_sec,
@@ -538,7 +610,17 @@ def train_models(
 
     for n in range(num_nets):
         spec_dir, spec_idx = net_out_specs[n]
-        save_net(state, n, data_lib.model_file_name(spec_dir, spec_idx, data_lib.LAST))
+        _save_from_block(blocks, n, data_lib.model_file_name(spec_dir, spec_idx, data_lib.LAST))
     if log_file:
         log_file.close()
     return log
+
+
+def _save_from_block(blocks, net_idx: int, path: str) -> None:
+    """``save_net`` of ensemble member ``net_idx`` from the block (lo, hi,
+    device, state) that holds it, on its device."""
+    for lo, hi, _, part in blocks:
+        if lo <= net_idx < hi:
+            save_net(part, net_idx - lo, path)
+            return
+    raise IndexError(f"net {net_idx} is in no block")

@@ -1,14 +1,22 @@
-"""Per-stage wall-time reporting (port of the ``StageTimer`` of
-pilotguru_tpu/utils/profiling.py; the JAX profiler hooks there have no
-counterpart here: ``torch.profiler`` traces the card directly)."""
+"""Per-stage wall-time reporting and the profiler hook (port of
+pilotguru_tpu/utils/profiling.py).
+
+Pipelines wrap their phases in ``StageTimer`` scopes; setting
+PILOTGURU_TPU_PROFILE_DIR captures a ``torch.profiler`` trace (Chrome trace
+JSON, viewable in Perfetto) around a region wrapped in
+``maybe_profiler_trace``, as the JAX package captures its profiler trace.
+"""
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List
+
+PROFILE_DIR_ENV = "PILOTGURU_TPU_PROFILE_DIR"
 
 
 @dataclass
@@ -77,3 +85,26 @@ class StageTimer:
                 )
                 + "\n"
             )
+
+
+@contextlib.contextmanager
+def maybe_profiler_trace(region_name: str = "pilotguru"):
+    """Capture a ``torch.profiler`` trace of the region when
+    PILOTGURU_TPU_PROFILE_DIR is set: host activity, and the cards'
+    kernels and copies when CUDA is available, written on exit as
+    ``<dir>/<region_name>/trace.json``. Unset, nothing is traced or
+    written. It chooses no device and no code path."""
+    profile_dir = os.environ.get(PROFILE_DIR_ENV)
+    if not profile_dir:
+        yield
+        return
+    import torch
+
+    target = os.path.join(profile_dir, region_name)
+    os.makedirs(target, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(target, "trace.json"))

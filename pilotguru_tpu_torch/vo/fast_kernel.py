@@ -141,10 +141,12 @@ def fast_nms_levels(
         table.h[level], table.w[level] = image.shape
         out.append((raw, nms))
     lib = cuda_lib.library()
-    err = lib.pg_fast_nms_levels(
-        ctypes.byref(table), ctypes.c_float(_threshold_f32(threshold)),
-        cuda_lib.current_stream(device),
-    )
+    # The kernel launches on the current device, which must own the stream.
+    with torch.cuda.device(device):
+        err = lib.pg_fast_nms_levels(
+            ctypes.byref(table), ctypes.c_float(_threshold_f32(threshold)),
+            cuda_lib.current_stream(device),
+        )
     COUNTER.count_launch()
     cuda_lib.check_launch("fast_nms_levels", err)
     return out

@@ -125,8 +125,9 @@ def gather_patches_levels(
     size = 2 * radius + 1
     out = torch.empty((sum(counts), size, size), dtype=torch.float32, device=device)
     if sum(counts) > 0:
-        err = cuda_lib.library().pg_gather_patches_levels(
-            ctypes.byref(table), out.data_ptr(), radius, cuda_lib.current_stream(device))
+        with torch.cuda.device(device):  # the launch's device owns the stream
+            err = cuda_lib.library().pg_gather_patches_levels(
+                ctypes.byref(table), out.data_ptr(), radius, cuda_lib.current_stream(device))
         COUNTER.count_launch()
         cuda_lib.check_launch(name, err)
     return list(out.split(counts))
@@ -228,10 +229,11 @@ def gather_blurred_patches_levels(
     if sum(counts) > 0:
         all_yx = yx_per_level[0] if len(yx_per_level) == 1 else torch.cat(yx_per_level)
         lib = cuda_lib.library()
-        err = lib.pg_blur_patch_gather_levels(
-            ctypes.byref(table), all_yx.data_ptr(), taps, out.data_ptr(), radius, br,
-            cuda_lib.current_stream(device),
-        )
+        with torch.cuda.device(device):  # the launch's device owns the stream
+            err = lib.pg_blur_patch_gather_levels(
+                ctypes.byref(table), all_yx.data_ptr(), taps, out.data_ptr(), radius, br,
+                cuda_lib.current_stream(device),
+            )
         BLUR_COUNTER.count_launch()
         cuda_lib.check_launch(name, err)
     return list(out.split(counts))

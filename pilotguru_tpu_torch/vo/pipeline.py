@@ -148,31 +148,98 @@ def _start_host_copy(tensor: torch.Tensor):
     return host, event
 
 
+def _device_list(devices, device) -> list:
+    """prefetch_features' devices as a list of torch.device: ``device``
+    (one) or ``devices`` (one, or a sequence), else every visible card."""
+    if device is not None:
+        if devices is not None:
+            raise ValueError("prefetch_features: give devices or device, not both")
+        devices = device
+    if devices is None:
+        from pilotguru_tpu_torch.parallel.mesh import cuda_devices
+
+        return cuda_devices()
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = [_indexed(torch.device(d)) for d in devices]
+    if not devices:
+        raise ValueError("prefetch_features: an empty device list")
+    return devices
+
+
+def _indexed(device: torch.device) -> torch.device:
+    """``cuda`` as the card it means now (``cuda:<current>``)."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _on_stream(*streams):
+    """The CUDA streams current on their devices within (None: a CPU
+    device, nothing to set); the last one's device current."""
+    stack = contextlib.ExitStack()
+    for stream in streams:
+        if stream is not None:
+            stack.enter_context(torch.cuda.stream(stream))
+    if streams and streams[-1] is not None:
+        stack.enter_context(torch.cuda.device(streams[-1].device))
+    return stack
+
+
+def _move_rows(rows, src: torch.device, src_stream, home: torch.device, home_stream):
+    """A shard's device rows on the tracker's device ``home``. From another
+    card the copy is enqueued on ``home_stream`` behind an event recorded
+    on the shard's stream, so it waits for the shard's extraction."""
+    if src == home:
+        return rows
+    if src_stream is not None and home_stream is not None:
+        ready = torch.cuda.Event()
+        ready.record(src_stream)
+        home_stream.wait_event(ready)
+    with _on_stream(src_stream, home_stream):
+        return [row.to(home, non_blocking=True) for row in rows]
+
+
 def prefetch_features(
     frames: Iterable[VideoFrame],
     camera: CameraModel,
     config: TrackerConfig,
     batch_size: int = 8,
-    device="cuda",
+    devices=None,
+    *,
+    device=None,
 ) -> Iterator[VideoFrame]:
     """Yield ``frames`` with their ORB features attached (VideoFrame.features
-    and .dev_features), extracted ``batch_size`` frames at a time on
-    ``device`` with ``config``'s extractor settings (its ``patch_impl``
-    among them).
+    and .dev_features), extracted ``batch_size`` frames at a time with
+    ``config``'s extractor settings (its ``patch_impl`` among them).
+
+    ``devices``: one device, or a list of them (default: every visible
+    card, as the JAX prefetcher takes every local device); ``device`` names
+    one. Each batch splits into contiguous sub-batches, one a device
+    (parallel/mesh.py's blocks: sizes differ by at most one, a short last
+    batch included, never padded), each extracted on its device; every
+    frame launches the extractor's kernels once, as a frame extracted
+    alone. The descriptors and device rows (dev_features) land on the
+    first device, the tracker's; frames come out in their input order.
 
     Keypoints are normalized on the device and every per-keypoint quantity
-    of a batch comes back in one packed array, copied to pinned host memory
-    behind the batch's work; the batches run one ahead, so batch k + 1 is
-    launched before batch k's copy is read. Descriptors stay on the device:
-    matching takes them there, and the tracker pulls a host copy only for a
-    keyframe. A short last batch is extracted as it is, never padded.
+    of a sub-batch comes back in one packed array, copied to pinned host
+    memory behind its work; the batches run one ahead, so batch k + 1 is
+    launched before batch k's copies are read. Descriptors stay on the
+    device: matching takes them there, and the tracker pulls a host copy
+    only for a keyframe.
 
     The whole pipeline runs on a daemon worker thread feeding a bounded
-    queue (three batches), on the consumer's current stream of ``device``,
-    so the consumer's work and the worker's are ordered on one stream. An
+    queue (three batches), on each card's current stream as the consumer
+    sees it when it calls this, so the consumer's work and the worker's
+    are ordered on the tracker's stream; a sub-batch's rows from another
+    card reach that stream behind an event on its own (``_move_rows``). An
     exception in the worker is raised again in the consumer."""
-    device = torch.device(device)
-    stream = torch.cuda.current_stream(device) if device.type == "cuda" else None
+    from pilotguru_tpu_torch.parallel.mesh import block_bounds
+
+    devices = _device_list(devices, device)
+    streams = [torch.cuda.current_stream(d) if d.type == "cuda" else None for d in devices]
+    home, home_stream = devices[0], streams[0]
 
     def batches():
         batch = []
@@ -185,33 +252,56 @@ def prefetch_features(
             yield batch
 
     def launch(batch):
-        packed, *rows = _extract_batch([f.gray for f in batch], camera, config, device)
-        return batch, _start_host_copy(packed), rows
+        shards = []
+        for (lo, hi), dev, stream in zip(block_bounds(len(batch), len(devices)), devices,
+                                         streams):
+            if lo == hi:
+                continue
+            with _on_stream(stream):
+                packed, *rows = _extract_batch([f.gray for f in batch[lo:hi]], camera, config,
+                                               dev)
+                copy = _start_host_copy(packed)
+            shards.append((batch[lo:hi], copy, _move_rows(rows, dev, stream, home,
+                                                          home_stream)))
+        return shards
 
-    def finish(launched):
-        batch, (host, event), (kp_norm, desc, valid, level) = launched
-        if event is not None:
-            event.synchronize()
-        # A copy out of the pinned buffer, which then returns to the
-        # allocator (keyframes keep their keypoints for the whole ride).
-        host = host.numpy().copy()
-        for i, frame in enumerate(batch):
-            frame.dev_features = (kp_norm[i], desc[i], valid[i], level[i])
-            frame.features = host_features(host[i], frame.dev_features[1])
-            yield frame
+    def finish(shards):
+        for batch, (host, event), (kp_norm, desc, valid, level) in shards:
+            if event is not None:
+                event.synchronize()
+            # A copy out of the pinned buffer, which then returns to the
+            # allocator (keyframes keep their keypoints for the whole ride).
+            host = host.numpy().copy()
+            for i, frame in enumerate(batch):
+                frame.dev_features = (kp_norm[i], desc[i], valid[i], level[i])
+                frame.features = host_features(host[i], frame.dev_features[1])
+                yield frame
 
     def pipeline():
-        with torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext():
-            in_flight = None
-            for batch in batches():
-                launched = launch(batch)
-                if in_flight is not None:
-                    yield from finish(in_flight)
-                in_flight = launched
+        in_flight = None
+        for batch in batches():
+            launched = launch(batch)
             if in_flight is not None:
                 yield from finish(in_flight)
+            in_flight = launched
+        if in_flight is not None:
+            yield from finish(in_flight)
 
     return _threaded(pipeline(), 3 * batch_size, "orb-prefetch")
+
+
+def _prefetch_devices(tracker_device):
+    """The devices the segment loop extracts features on: the tracker's
+    first, then every other visible card when it is on one (as the JAX CLI
+    extracts over every local device); the tracker's device alone on the
+    CPU."""
+    tracker_device = torch.device(tracker_device)
+    if tracker_device.type != "cuda":
+        return tracker_device
+    from pilotguru_tpu_torch.parallel.mesh import cuda_devices
+
+    home = _indexed(tracker_device)
+    return [home] + [d for d in cuda_devices() if d != home]
 
 
 def video_frames(
@@ -383,7 +473,8 @@ def track_video_segments(
     Frames decode on their own thread and their features are prefetched in
     batches of ``feature_batch_size`` (0 decodes and extracts inline, frame
     by frame), with the first tracker's camera and extractor settings on
-    its device; a tracker whose ``track_chunk_frames`` is above 0 takes
+    its device and, when that is a card, on every other visible card too
+    (``_prefetch_devices``); a tracker whose ``track_chunk_frames`` is above 0 takes
     chunks of that many frames in the OK state. ``make_tracker``: a
     function returning a fresh tracker for each segment (default:
     ``tracker_from_settings`` with ``device``, ``dtype`` and
@@ -443,10 +534,10 @@ def track_video_segments(
             if feature_batch_size > 0 and prefetched is None:
                 # The prefetcher extracts with the first tracker's camera and
                 # extractor settings (its patch_impl among them), on its
-                # device; no tracker is made for it alone.
+                # device first; no tracker is made for it alone.
                 frames = prefetched = prefetch_features(
                     background_frames(frames), tracker.camera, tracker.config,
-                    feature_batch_size, tracker.device)
+                    feature_batch_size, _prefetch_devices(tracker.device))
             chunk_size = tracker.config.track_chunk_frames
             fed = 0
             first_ok_fid = None

@@ -142,14 +142,26 @@ def test_preprocess_corpus_cli_writes_each_rides_fit(tmp_path, monkeypatch):
         assert np.sqrt(np.mean((w.velocities_m_s - truth) ** 2)) < 1.0
 
 
-def test_preprocess_corpus_refuses_sharding_over_several_cards(tmp_path, monkeypatch):
-    """Several visible CUDA devices: --shard_windows raises, naming the
-    ROADMAP item, before it touches any card; it never quietly runs on one."""
+def test_preprocess_corpus_shards_windows_over_every_card(tmp_path, monkeypatch):
+    """Four visible CUDA devices: --shard_windows hands fit_motion_corpus a
+    ("windows",) mesh over cuda:0 to cuda:3 (a spy that touches no card);
+    it never quietly runs on one."""
     monkeypatch.setenv("PILOTGURU_TPU_PLATFORM", "cuda")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    with pytest.raises(NotImplementedError, match="multi-card --shard_windows"):
-        tcli.main([f"--corpus_dir={tmp_path}", "--shard_windows"])
+    _write_corpus(tmp_path, _planar_rides()[:1])
+    seen = []
+
+    def spy(rides, config, timer=None, mesh=None):
+        seen.append((len(rides), config.device, mesh))
+        return []
+
+    monkeypatch.setattr(tcorpus, "fit_motion_corpus", spy)
+    assert tcli.main([f"--corpus_dir={tmp_path}", "--shard_windows"]) == 0
+    (num_rides, device, mesh), = seen
+    assert num_rides == 1 and device == "cuda"
+    assert mesh.axis_names == ("windows",) and mesh.shape == {"windows": 4}
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(4))
 
 
 def test_preprocess_corpus_runs_on_the_card_unless_asked_for_the_cpu(tmp_path, monkeypatch):

@@ -386,6 +386,22 @@ def test_process_frame_runs_k1_and_k2_once_a_frame(cuda):
 
 
 @pytest.mark.cuda
+def test_sharded_prefetch_equals_one_device_prefetch(cuda):
+    """prefetch_features over [cuda:0, cuda:0] on 12 parallax frames at
+    2000 features / 8 levels, batch 8 (sub-batches 4/4, then 2/2): every
+    feature and device row equal to the bit to the one-device prefetcher's,
+    in order, with K1 and K2 once a frame (chip_smoke.run_sharded_prefetch,
+    the smoke's phase 15b (b))."""
+    import chip_smoke
+
+    row = chip_smoke.run_sharded_prefetch(list(chip_smoke.render_ride(frames=12)),
+                                          [torch.device("cuda", 0)] * 2)
+    assert row["equal"]
+    assert row["launches"] == {"fast_nms": 12, "gather_patches": 12,
+                               "gather_blurred_patches": 0}
+
+
+@pytest.mark.cuda
 def test_image_list_cli_without_cv2_on_the_card(cuda, tmp_path):
     """The VO CLI in a child process without cv2, on the first 40 parallax
     frames as a gray PNG list, writes the trajectory that the segment loop

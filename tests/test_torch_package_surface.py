@@ -30,7 +30,8 @@ from pilotguru_tpu_torch.utils import linalg
 torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SUBPACKAGES = ("calib", "vo", "solvers", "timeseries", "geometry", "formats", "ml", "video")
+SUBPACKAGES = ("calib", "vo", "solvers", "timeseries", "geometry", "formats", "ml", "video",
+               "parallel")
 # Exports not ported by design (ROADMAP.md Queue 1 item 5: what targets
 # only the JAX runtime): CorpusBuckets sizes the shapes that the JAX
 # corpus pads each ride to, so that XLA compiles once a bucket; the port

@@ -104,29 +104,42 @@ def test_prefetch_equals_per_frame_extraction(golden_start):
         np.testing.assert_array_equal(dev_level.numpy(), level)
 
 
-def test_prefetch_matches_reference_prefetch(golden_start, monkeypatch):
+def reference_prefetched(frames, monkeypatch, devices, fast_impl="pallas"):
+    """(the JAX prefetcher's frames over ``devices``, its probe tracker),
+    its FAST kernel on the TPU path (Pallas, interpret mode) unless
+    ``fast_impl`` names another."""
     monkeypatch.setattr(jax_native_video, "available", lambda: False)
-    monkeypatch.setenv("PGTPU_FAST_IMPL", "pallas")
+    monkeypatch.setenv("PGTPU_FAST_IMPL", fast_impl)
     probe = jpipeline.tracker_from_settings(jax_read_camera_settings(f"{INPUTS}/camera.yaml"))
     # The reference's batch extractor is cached per process and reads the
     # switch while it traces: trace it afresh, and leave no such trace.
     jpipeline._extract_pack_jit.cache_clear()
     try:
         want = list(jpipeline.prefetch_features(
-            iter([jpipeline.VideoFrame(f.gray, f.frame_id, f.time_usec)
-                  for f in golden_start]),
-            probe.camera, probe.config, BATCH, devices=[jax.devices()[0]]))
+            iter([jpipeline.VideoFrame(f.gray, f.frame_id, f.time_usec) for f in frames]),
+            probe.camera, probe.config, BATCH, devices=devices))
     finally:
         jpipeline._extract_pack_jit.cache_clear()
+    return want, probe
+
+
+def test_prefetch_matches_reference_prefetch(golden_start, monkeypatch):
+    want, probe = reference_prefetched(golden_start, monkeypatch, [jax.devices()[0]])
+    assert_matches_reference(_prefetched(golden_start), want, golden_start, probe)
+
+
+def assert_matches_reference(got, want, frames, probe):
+    """The port's prefetched frames ``got`` against the JAX prefetcher's
+    ``want`` on the same ``frames``, with the bars of the module docstring."""
     config = probe.config
     one_frame = jax.jit(
         lambda image: jfeatures.extract_orb_features.__wrapped__(
             image, num_levels=config.num_levels, scale=config.scale,
             threshold=config.fast_threshold, total_budget=config.total_budget))
-    got = _prefetched(golden_start)
-    assert [f.frame_id for f in want] == [f.frame_id for f in got] == list(range(FRAMES))
+    assert [f.frame_id for f in want] == [f.frame_id for f in got] == \
+        [f.frame_id for f in frames]
     step = 2 * np.pi / features.BRIEF_ANGLE_BINS
-    for g, w, frame in zip(got, want, golden_start):
+    for g, w, frame in zip(got, want, frames):
         kp, desc, valid, level, angle = g.features
         w_kp, w_desc, w_valid, w_level, w_angle = (np.asarray(a) for a in w.features)
         np.testing.assert_array_equal(valid, w_valid)
