@@ -93,111 +93,116 @@ def run_training_group(
     """Train all folds of one program group as one super-ensemble of
     len(folds) * num_nets nets on ``device``, or, given ``devices`` (more
     than one, their count dividing the net count), split over them in
-    contiguous blocks of nets; otherwise on the first of ``devices``."""
+    contiguous blocks of nets; otherwise on the first of ``devices``.
+    Under ``utils.profiling.recording(timer)`` it records the spans
+    ``search.setup`` (model, init, preload, weighters) and
+    ``search.fold_logs`` around train_models' own."""
     import torch
 
     from pilotguru_tpu_torch.ml import augmentation as aug
     from pilotguru_tpu_torch.ml import convert
     from pilotguru_tpu_torch.ml import data as data_lib
     from pilotguru_tpu_torch.ml import models, training, weighting
+    from pilotguru_tpu_torch.utils import profiling
 
-    first = folds[0]
-    input_names = first["input_names"]
-    label_name = first["label_names"][0]
-    options = {
-        models.NET_NAME: first["net_name"],
-        models.NET_HEAD_DIMS: first.get("net_head_dims", 10),
-        models.LABEL_DIMENSIONS: first.get("label_dimensions", 1),
-        models.DROPOUT_PROB: first.get("dropout_prob", 0.0),
-        models.LAYER_BLOCKS_OPTIONS: first.get(
-            "layer_blocks_options", models.DEFAULT_LAYER_BLOCKS_OPTIONS
-        ),
-    }
-    if first.get(COMPUTE_DTYPE):
-        options[models.COMPUTE_DTYPE] = first[COMPUTE_DTYPE]
-    shift_rate = first.get("horizontal_label_shift_rate", [0.0])
-    base_lr = float(first.get("learning_rate", 1e-3))
-    train_settings = training.TrainSettings(
-        epochs=epochs,
-        batch_size=first["batch_size"],
-        learning_rate=base_lr,
-        optimizer=first.get("optimizer", training.SGD),
-        loss_norm_pow=first.get("loss_norm_pow", 2.0),
-        batch_use_prob=batch_use_prob,
-        plateau_patience_epochs=first.get("plateau_patience_epochs", 0),
-        augment=aug.AugmentSettings(
-            target_width=first["target_width"],
-            max_horizontal_shift_pixels=first.get(
-                "max_horizontal_shift_pixels", 0
+    with profiling.stage("search.setup"):
+        first = folds[0]
+        input_names = first["input_names"]
+        label_name = first["label_names"][0]
+        options = {
+            models.NET_NAME: first["net_name"],
+            models.NET_HEAD_DIMS: first.get("net_head_dims", 10),
+            models.LABEL_DIMENSIONS: first.get("label_dimensions", 1),
+            models.DROPOUT_PROB: first.get("dropout_prob", 0.0),
+            models.LAYER_BLOCKS_OPTIONS: first.get(
+                "layer_blocks_options", models.DEFAULT_LAYER_BLOCKS_OPTIONS
             ),
-            horizontal_label_shift_rate=tuple(np.atleast_1d(shift_rate)),
-            blur_sigma=first.get("train_blur_sigma", 2.0),
-            blur_prob=first.get("train_blur_prob", 0.0),
-            grayscale_interpolate_prob=first.get(
-                "grayscale_interpolate_prob", 0.0
+        }
+        if first.get(COMPUTE_DTYPE):
+            options[models.COMPUTE_DTYPE] = first[COMPUTE_DTYPE]
+        shift_rate = first.get("horizontal_label_shift_rate", [0.0])
+        base_lr = float(first.get("learning_rate", 1e-3))
+        train_settings = training.TrainSettings(
+            epochs=epochs,
+            batch_size=first["batch_size"],
+            learning_rate=base_lr,
+            optimizer=first.get("optimizer", training.SGD),
+            loss_norm_pow=first.get("loss_norm_pow", 2.0),
+            batch_use_prob=batch_use_prob,
+            plateau_patience_epochs=first.get("plateau_patience_epochs", 0),
+            augment=aug.AugmentSettings(
+                target_width=first["target_width"],
+                max_horizontal_shift_pixels=first.get(
+                    "max_horizontal_shift_pixels", 0
+                ),
+                horizontal_label_shift_rate=tuple(np.atleast_1d(shift_rate)),
+                blur_sigma=first.get("train_blur_sigma", 2.0),
+                blur_prob=first.get("train_blur_prob", 0.0),
+                grayscale_interpolate_prob=first.get(
+                    "grayscale_interpolate_prob", 0.0
+                ),
             ),
-        ),
-    )
-    example = {}
-    for name in input_names:
-        arr = train_data[name][:1]
-        if name == models.FRAME_IMG:
-            arr = data_lib.images_to_float(arr)[
-                :, : first["target_height"], : first["target_width"]
-            ]
-        example[name] = np.asarray(arr, np.float32)
-    model = models.make_network(options, first.get("linear_bias_options", []),
-                                example[models.FRAME_IMG].shape[1:])
-    tx = training.make_optimizer(train_settings.optimizer, base_lr)
-
-    total_nets = len(folds) * num_nets
-    if devices is not None:
-        device = devices[0]
-        if len(devices) < 2 or total_nets % len(devices) != 0:
-            devices = None
-    state = training.init_ensemble(model, example, total_nets, tx, device=device)
-
-    # Per-fold learning rates through lr_scale, so a learning-rate sweep
-    # shares one program.
-    lr_scale = np.ones((total_nets,), np.float32)
-    for f, settings in enumerate(folds):
-        lr_scale[f * num_nets : (f + 1) * num_nets] = (
-            float(settings.get("learning_rate", base_lr)) / base_lr
         )
-    state = state._replace(lr_scale=torch.as_tensor(lr_scale, device=device))
+        example = {}
+        for name in input_names:
+            arr = train_data[name][:1]
+            if name == models.FRAME_IMG:
+                arr = data_lib.images_to_float(arr)[
+                    :, : first["target_height"], : first["target_width"]
+                ]
+            example[name] = np.asarray(arr, np.float32)
+        model = models.make_network(options, first.get("linear_bias_options", []),
+                                    example[models.FRAME_IMG].shape[1:])
+        tx = training.make_optimizer(train_settings.optimizer, base_lr)
 
-    if preload_dir:
-        restored = []
-        for settings in folds:
-            full = os.path.join(preload_dir, settings["settings_id"])
-            restored.extend(data_lib.preload_model_names(full, num_nets))
-        loaded = training.load_ensemble_params(restored)
-        params, batch_stats = convert.ensemble_from_flax(
-            loaded["params"], loaded["batch_stats"], device)
-        state = state._replace(params=params, batch_stats=batch_stats)
+        total_nets = len(folds) * num_nets
+        if devices is not None:
+            device = devices[0]
+            if len(devices) < 2 or total_nets % len(devices) != 0:
+                devices = None
+        state = training.init_ensemble(model, example, total_nets, tx, device=device)
 
-    mags = np.mean(
-        np.abs(
-            train_data[label_name].reshape(train_data[label_name].shape[0], -1)
-        ),
-        axis=1,
-    )
-    weighters = []
-    net_out_specs = []
-    for settings in folds:
-        sid = settings["settings_id"]
-        os.makedirs(os.path.join(out_root, sid), exist_ok=True)
-        os.makedirs(os.path.join(log_root, sid), exist_ok=True)
-        for n in range(num_nets):
-            weighters.append(
-                weighting.make_sample_weighter(
-                    settings.get(
-                        "sample_weighter_options", {"name": "uniform"}
-                    ),
-                    mags,
-                )
+        # Per-fold learning rates through lr_scale, so a learning-rate sweep
+        # shares one program.
+        lr_scale = np.ones((total_nets,), np.float32)
+        for f, settings in enumerate(folds):
+            lr_scale[f * num_nets : (f + 1) * num_nets] = (
+                float(settings.get("learning_rate", base_lr)) / base_lr
             )
-            net_out_specs.append((os.path.join(out_root, sid), n))
+        state = state._replace(lr_scale=torch.as_tensor(lr_scale, device=device))
+
+        if preload_dir:
+            restored = []
+            for settings in folds:
+                full = os.path.join(preload_dir, settings["settings_id"])
+                restored.extend(data_lib.preload_model_names(full, num_nets))
+            loaded = training.load_ensemble_params(restored)
+            params, batch_stats = convert.ensemble_from_flax(
+                loaded["params"], loaded["batch_stats"], device)
+            state = state._replace(params=params, batch_stats=batch_stats)
+
+        mags = np.mean(
+            np.abs(
+                train_data[label_name].reshape(train_data[label_name].shape[0], -1)
+            ),
+            axis=1,
+        )
+        weighters = []
+        net_out_specs = []
+        for settings in folds:
+            sid = settings["settings_id"]
+            os.makedirs(os.path.join(out_root, sid), exist_ok=True)
+            os.makedirs(os.path.join(log_root, sid), exist_ok=True)
+            for n in range(num_nets):
+                weighters.append(
+                    weighting.make_sample_weighter(
+                        settings.get(
+                            "sample_weighter_options", {"name": "uniform"}
+                        ),
+                        mags,
+                    )
+                )
+                net_out_specs.append((os.path.join(out_root, sid), n))
 
     events = training.train_models(
         model, state, tx, train_data, val_data,
@@ -206,33 +211,34 @@ def run_training_group(
         net_out_specs=net_out_specs, devices=devices,
     )
 
-    # Per-fold scalar logs: the super-ensemble's curves sliced apart.
-    for f, settings in enumerate(folds):
-        sid = settings["settings_id"]
-        path = os.path.join(log_root, sid, "train_log.jsonl")
-        with open(path, "a") as log_file:
-            for event in events:
-                lo, hi = f * num_nets, (f + 1) * num_nets
-                train_per_net = (event.train_loss_per_net or [])[lo:hi]
-                val_per_net = (event.val_loss_per_net or [])[lo:hi]
-                log_file.write(
-                    json.dumps(
-                        {
-                            "epoch": event.epoch,
-                            "train_loss": float(np.mean(train_per_net))
-                            if train_per_net
-                            else event.train_loss,
-                            "val_loss": float(np.mean(val_per_net))
-                            if val_per_net
-                            else event.val_loss,
-                            "epoch_duration_sec": event.epoch_duration_sec,
-                            "examples_per_sec": event.examples_per_sec,
-                            "train_loss_per_net": train_per_net,
-                            "val_loss_per_net": val_per_net,
-                        }
+    with profiling.stage("search.fold_logs"):
+        # Per-fold scalar logs: the super-ensemble's curves sliced apart.
+        for f, settings in enumerate(folds):
+            sid = settings["settings_id"]
+            path = os.path.join(log_root, sid, "train_log.jsonl")
+            with open(path, "a") as log_file:
+                for event in events:
+                    lo, hi = f * num_nets, (f + 1) * num_nets
+                    train_per_net = (event.train_loss_per_net or [])[lo:hi]
+                    val_per_net = (event.val_loss_per_net or [])[lo:hi]
+                    log_file.write(
+                        json.dumps(
+                            {
+                                "epoch": event.epoch,
+                                "train_loss": float(np.mean(train_per_net))
+                                if train_per_net
+                                else event.train_loss,
+                                "val_loss": float(np.mean(val_per_net))
+                                if val_per_net
+                                else event.val_loss,
+                                "epoch_duration_sec": event.epoch_duration_sec,
+                                "examples_per_sec": event.examples_per_sec,
+                                "train_loss_per_net": train_per_net,
+                                "val_loss_per_net": val_per_net,
+                            }
+                        )
+                        + "\n"
                     )
-                    + "\n"
-                )
 
 
 def search_devices(device):

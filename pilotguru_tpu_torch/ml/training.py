@@ -72,7 +72,7 @@ from pilotguru_tpu_torch.parallel.mesh import (
     make_mesh,
     shard_leading_axis,
 )
-from pilotguru_tpu_torch.utils import msgpack
+from pilotguru_tpu_torch.utils import msgpack, profiling
 
 ADAM = "adam"
 SGD = "sgd"
@@ -441,7 +441,17 @@ def train_models(
     (ml/folded.py), and the per-net path draws each net's masks from the
     same generator in net order (ml/models.py: ``dropout``). The host's
     bookkeeping (weights [N, B], skip mask, lr_scale, plateau counters,
-    losses) is sliced by block and gathered back in net order."""
+    losses) is sliced by block and gathered back in net order.
+
+    Under ``utils.profiling.recording(timer)`` the loop records spans:
+    ``train.epoch`` (attribute ``epoch``) around ``train.batch`` (the next
+    batch's host gather, weights and copies), ``train.step`` (the step's
+    dispatch) and ``train.epoch_end`` (``train.pull``, ``train.validate``,
+    ``train.checkpoint``, ``train.log``), then ``train.checkpoint`` for the
+    last saves; and tallies ``train.steps``, ``train.skipped_batches``,
+    ``train.val_batches``, ``train.checkpoints`` and ``train.h2d_bytes``.
+    Without a recorder nothing is recorded; what the loop computes and
+    writes is the same either way."""
     num_nets = len(weighters)
     if net_out_specs is None:
         net_out_specs = [(out_dir, n) for n in range(num_nets)]
@@ -475,6 +485,8 @@ def train_models(
         if labels.ndim == 1:
             labels = labels[:, None]
         labels = torch.as_tensor(labels)
+        profiling.count("train.h2d_bytes", len(block_devices) * (
+            labels.nbytes + sum(v.nbytes for v in inputs.values())))
         return {dev: ({k: v.to(dev, non_blocking=True) for k, v in inputs.items()},
                       labels.to(dev, non_blocking=True)) for dev in block_devices}
 
@@ -490,13 +502,16 @@ def train_models(
     log_file = open(log_path, "a") if log_path else None
 
     def stage_batch(idx):
-        """Batch k + 1 gathered and sent to the devices while they still
-        run batch k (the copies are asynchronous)."""
-        batch = gather_batch(train_data, idx)
-        weights = np.stack([w.get_weights(idx) for w in weighters]).astype(np.float32)
-        use_mask = host_rng.uniform(size=num_nets) < settings.batch_use_prob
-        weights = [torch.as_tensor(weights[lo:hi]).to(dev, non_blocking=True)
-                   for lo, hi, dev, _ in blocks]
+        """Batch k + 1 gathered and sent to the devices before step k is
+        dispatched: the gather overlaps step k - 1 on the device, and each
+        copy, from pageable memory, returns once the stream has drained."""
+        with profiling.stage("train.batch"):
+            batch = gather_batch(train_data, idx)
+            weights = np.stack([w.get_weights(idx) for w in weighters]).astype(np.float32)
+            use_mask = host_rng.uniform(size=num_nets) < settings.batch_use_prob
+            profiling.count("train.h2d_bytes", weights.nbytes)
+            weights = [torch.as_tensor(weights[lo:hi]).to(dev, non_blocking=True)
+                       for lo, hi, dev, _ in blocks]
         return batch, weights, use_mask, idx
 
     def run_train_step(batch, weights, use_mask):
@@ -526,91 +541,106 @@ def train_models(
         return gather_leading_axis(results, device)
 
     for epoch in range(settings.epochs):
-        epoch_start = time.time()
-        running = np.zeros((num_nets,))
-        seen = np.zeros((num_nets,), np.int64)
-        # Per-step results stay on the device during the epoch; the pulls
-        # and the weighters' registration come at its end, in step order
-        # (a weighter's weights change only at step()).
-        pending: List[tuple] = []
-        batch_iter = data_lib.batches(num_train, settings.batch_size, host_rng)
-        nxt = next(batch_iter, None)
-        staged = stage_batch(nxt) if nxt is not None else None
-        while staged is not None:
-            batch, weights, use_mask, idx = staged
+        with profiling.stage("train.epoch", epoch=epoch):
+            epoch_start = time.time()
+            running = np.zeros((num_nets,))
+            seen = np.zeros((num_nets,), np.int64)
+            # Per-step results stay on the device during the epoch; the pulls
+            # and the weighters' registration come at its end, in step order
+            # (a weighter's weights change only at step()).
+            pending: List[tuple] = []
+            batch_iter = data_lib.batches(num_train, settings.batch_size, host_rng)
             nxt = next(batch_iter, None)
             staged = stage_batch(nxt) if nxt is not None else None
-            if not use_mask.any():
-                continue
-            losses, per_example = run_train_step(batch, weights, use_mask)
-            pending.append((idx, use_mask, losses, per_example))
-        for idx, use_mask, losses, per_example in pending:
-            losses_np = losses.cpu().numpy()
-            per_example_np = per_example.cpu().numpy()
-            for n, w in enumerate(weighters):
-                if use_mask[n]:
-                    w.register_losses(idx, per_example_np[n])
-                    running[n] += losses_np[n] * len(idx)
-                    seen[n] += len(idx)
-        epoch_duration = time.time() - epoch_start
-        examples_per_sec = float(seen.sum()) / max(epoch_duration, 1e-9)
-        avg_loss = float(running.sum() / max(seen.sum(), 1))
+            while staged is not None:
+                batch, weights, use_mask, idx = staged
+                nxt = next(batch_iter, None)
+                staged = stage_batch(nxt) if nxt is not None else None
+                if not use_mask.any():
+                    profiling.count("train.skipped_batches")
+                    continue
+                with profiling.stage("train.step"):
+                    losses, per_example = run_train_step(batch, weights, use_mask)
+                profiling.count("train.steps")
+                pending.append((idx, use_mask, losses, per_example))
+            with profiling.stage("train.epoch_end"):
+                with profiling.stage("train.pull"):
+                    for idx, use_mask, losses, per_example in pending:
+                        losses_np = losses.cpu().numpy()
+                        per_example_np = per_example.cpu().numpy()
+                        for n, w in enumerate(weighters):
+                            if use_mask[n]:
+                                w.register_losses(idx, per_example_np[n])
+                                running[n] += losses_np[n] * len(idx)
+                                seen[n] += len(idx)
+                    epoch_duration = time.time() - epoch_start
+                    examples_per_sec = float(seen.sum()) / max(epoch_duration, 1e-9)
+                    avg_loss = float(running.sum() / max(seen.sum(), 1))
 
-        for w in weighters:
-            w.step()
+                    for w in weighters:
+                        w.step()
 
-        val_total = np.zeros((num_nets,))
-        for idx in data_lib.batches(num_val, settings.batch_size, None):
-            batch = gather_batch(val_data, idx)
-            val_losses = [eval_step(part, *batch[dev]) for _, _, dev, part in blocks]
-            val_total += torch.cat([v.to(device) for v in val_losses]).cpu().numpy() * len(idx)
-        val_avg = val_total / max(num_val, 1)
-        val_avg_all = float(val_avg.mean())
+                with profiling.stage("train.validate"):
+                    val_total = np.zeros((num_nets,))
+                    for idx in data_lib.batches(num_val, settings.batch_size, None):
+                        batch = gather_batch(val_data, idx)
+                        val_losses = [eval_step(part, *batch[dev]) for _, _, dev, part in blocks]
+                        val_total += torch.cat(
+                            [v.to(device) for v in val_losses]).cpu().numpy() * len(idx)
+                        profiling.count("train.val_batches")
+                    val_avg = val_total / max(num_val, 1)
+                    val_avg_all = float(val_avg.mean())
 
-        marker = ""
-        if val_avg_all < min_val_loss:
-            marker = " ***"
-            min_val_loss = val_avg_all
-        elif val_avg_all * 0.9 < min_val_loss:
-            marker = " *"
+                marker = ""
+                if val_avg_all < min_val_loss:
+                    marker = " ***"
+                    min_val_loss = val_avg_all
+                elif val_avg_all * 0.9 < min_val_loss:
+                    marker = " *"
 
+                with profiling.stage("train.checkpoint"):
+                    for n in range(num_nets):
+                        if val_avg[n] < min_val_losses[n]:
+                            min_val_losses[n] = val_avg[n]
+                            plateau_counters[n] = 0
+                            spec_dir, spec_idx = net_out_specs[n]
+                            _save_from_block(blocks, n, data_lib.model_file_name(
+                                spec_dir, spec_idx, data_lib.BEST))
+                            profiling.count("train.checkpoints")
+                        elif settings.plateau_patience_epochs > 0:
+                            plateau_counters[n] += 1
+                            if plateau_counters[n] > settings.plateau_patience_epochs:
+                                lr_scale[n] *= 0.5
+                                plateau_counters[n] = 0
+                blocks = [(lo, hi, dev, part._replace(
+                    lr_scale=torch.as_tensor(lr_scale[lo:hi], device=dev)))
+                    for lo, hi, dev, part in blocks]
+
+                with profiling.stage("train.log"):
+                    event = TrainLogEvent(
+                        epoch, avg_loss, val_avg_all, epoch_duration, examples_per_sec,
+                        train_loss_per_net=list(np.round(running / np.maximum(seen, 1), 8)),
+                        val_loss_per_net=list(np.round(val_avg, 8)),
+                        improvement_marker=marker.strip(),
+                        lr_scale_per_net=[float(s) for s in lr_scale],
+                    )
+                    log.append(event)
+                    if print_log:
+                        print(
+                            f"Epoch {epoch};  loss {avg_loss:g};  val loss: {val_avg_all:g};  "
+                            f"{epoch_duration:0.2f} sec/epoch; "
+                            f"{examples_per_sec:0.2f} examples/sec{marker}"
+                        )
+                    if log_file:
+                        log_file.write(json.dumps(event.__dict__) + "\n")
+                        log_file.flush()
+
+    with profiling.stage("train.checkpoint"):
         for n in range(num_nets):
-            if val_avg[n] < min_val_losses[n]:
-                min_val_losses[n] = val_avg[n]
-                plateau_counters[n] = 0
-                spec_dir, spec_idx = net_out_specs[n]
-                _save_from_block(blocks, n, data_lib.model_file_name(spec_dir, spec_idx,
-                                                                     data_lib.BEST))
-            elif settings.plateau_patience_epochs > 0:
-                plateau_counters[n] += 1
-                if plateau_counters[n] > settings.plateau_patience_epochs:
-                    lr_scale[n] *= 0.5
-                    plateau_counters[n] = 0
-        blocks = [(lo, hi, dev, part._replace(lr_scale=torch.as_tensor(lr_scale[lo:hi],
-                                                                       device=dev)))
-                  for lo, hi, dev, part in blocks]
-
-        event = TrainLogEvent(
-            epoch, avg_loss, val_avg_all, epoch_duration, examples_per_sec,
-            train_loss_per_net=list(np.round(running / np.maximum(seen, 1), 8)),
-            val_loss_per_net=list(np.round(val_avg, 8)),
-            improvement_marker=marker.strip(),
-            lr_scale_per_net=[float(s) for s in lr_scale],
-        )
-        log.append(event)
-        if print_log:
-            print(
-                f"Epoch {epoch};  loss {avg_loss:g};  val loss: {val_avg_all:g};  "
-                f"{epoch_duration:0.2f} sec/epoch; "
-                f"{examples_per_sec:0.2f} examples/sec{marker}"
-            )
-        if log_file:
-            log_file.write(json.dumps(event.__dict__) + "\n")
-            log_file.flush()
-
-    for n in range(num_nets):
-        spec_dir, spec_idx = net_out_specs[n]
-        _save_from_block(blocks, n, data_lib.model_file_name(spec_dir, spec_idx, data_lib.LAST))
+            spec_dir, spec_idx = net_out_specs[n]
+            _save_from_block(blocks, n, data_lib.model_file_name(spec_dir, spec_idx,
+                                                                 data_lib.LAST))
+            profiling.count("train.checkpoints")
     if log_file:
         log_file.close()
     return log
