@@ -17,6 +17,10 @@ Phases (each raises on failure, so the script exits non-zero):
      level sizes (random, near-border and corner keypoints), and its
      all-level call (one launch, the extractor's per-level budgets plus
      border and corner keypoints) against 8 plain calls;
+  5b. the fused batch norm + ReLU pair (csrc/bn_relu.cuh) forward and
+     backward against its plain version over the train-mode batch norms of
+     a folded PilotNet x3 step at batch 1,024, in float32 and bfloat16,
+     within BN_BARS;
   6. the extractor on CUDA against the CPU, with both patch paths, and the
      seed guard (run_seed_guard): the first 20 parallax frames on the card
      in float32 at RANSAC seed 2 through process_frame, reporting the frame
@@ -167,7 +171,9 @@ Phases (each raises on failure, so the script exits non-zero):
      the files of the run without it;
  16. the kernels' times, one level at a time and all levels in one launch,
      each beside its bound, and beside K1 two floors: an empty kernel on
-     its grid and a copy of its bytes;
+     its grid and a copy of its bytes; the fused batch norm pair over a
+     PilotNet x3 and x12 step's layers beside its bound, the plain version
+     and the op-by-op expression it replaced;
  17. one JSON line with every kernel at the shape the paths give it (all 8
      levels of a 720p frame in one launch): launches
      on the paths (phases 7, 8, 7c, 9, 9b, 12h, 12i and 15b), error against the plain version,
@@ -914,6 +920,165 @@ def time_blur_patch_kernel(cases):
         f"{row['operations'] / 1e6:.1f} MFLOP unfused); wall ms {wall:.4f}", flush=True,
     )
     return cases, row
+
+
+# The fused batch norm + ReLU (csrc/bn_relu.cuh) at the benchmark cells'
+# shapes: the train-mode batch norms of one folded PilotNet step, x3 (the
+# train cell) and x12 (the search cell), at batch 1,024.
+BN_NETS = (3, 12)
+BN_BATCH = 1024
+
+
+def bn_relu_layers(nets: int, dtype: str = "float32", batch: int = BN_BATCH) -> list:
+    """What each fused batch norm of one folded PilotNet x``nets`` train step
+    receives, as the path lays it out: (x, scale, bias, mean_ra, var_ra) per
+    layer, copied from a step on uint8 frames."""
+    import torch
+
+    from pilotguru_tpu_torch.ml import augmentation, bn_relu_kernel, models, training
+
+    options = {"net_name": "nvidia", "net_head_dims": 10, "label_dimensions": 2,
+               "dropout_prob": 0.0, "compute_dtype": dtype}
+    model = models.make_network(options, [{"input_name": "forward_axis", "input_dims": 3}],
+                                (66, 200, 3))
+    tx = training.make_optimizer("sgd", 1e-3)
+    state = training.init_ensemble(model, {}, nets, tx, seed=1, device="cuda")
+    settings = training.TrainSettings(epochs=1, batch_size=batch,
+                                      augment=augmentation.AugmentSettings(target_width=200))
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 256, (batch, 66, 200, 3), dtype=np.uint8)
+    axis = rng.normal(size=(batch, 3)).astype(np.float32)
+    inputs = {"frame_img": torch.as_tensor(frames).cuda(),
+              "forward_axis": torch.as_tensor(axis).cuda()}
+    labels = torch.as_tensor(rng.normal(0, 0.3, (batch, 2)).astype(np.float32)).cuda()
+    layers, original = [], bn_relu_kernel.bn_relu_train
+
+    def keep(x, *rest):
+        layers.append(tuple(t.detach().clone(memory_format=torch.preserve_format)
+                            for t in (x, *rest[:4])))
+        return original(x, *rest)
+
+    bn_relu_kernel.bn_relu_train = keep
+    try:
+        training.make_train_step(model, tx, settings)(
+            state, inputs, labels, torch.ones((nets, batch), device="cuda"),
+            torch.ones(nets, dtype=torch.bool, device="cuda"), torch.Generator(device="cuda"))
+    finally:
+        bn_relu_kernel.bn_relu_train = original
+    torch.cuda.synchronize()
+    return layers
+
+
+def _bn_relu_both(layers, grads):
+    """Each layer forward and backward through the kernels and the plain
+    version (its backward from the kernels' statistics, so both take the
+    same ReLU mask): the largest gap of y and dx against the largest value,
+    and of the statistics and dscale / dbias (relative)."""
+    import torch
+
+    from pilotguru_tpu_torch.ml import bn_relu_kernel as bk
+
+    worst = {"y": 0.0, "dx": 0.0, "stats": 0.0, "grads": 0.0}
+    for (x, scale, bias, mean_ra, var_ra), g in zip(layers, grads):
+        y, stats = bk._forward_cuda(x, scale, bias, mean_ra, var_ra, 1e-5, 0.9)
+        dx, dgrads = bk._backward_cuda(g, x, scale, bias, stats)
+        y_p, stats_p = bk.bn_relu_train_plain(x, scale, bias, mean_ra, var_ra, 1e-5, 0.9)
+        dx_p, dgrads_p = bk.bn_relu_backward_plain(g, x, scale, bias, stats)
+        for key, got, want in (("y", y, y_p), ("dx", dx, dx_p)):
+            gap = (got.float() - want.float()).abs().max() / want.float().abs().max()
+            worst[key] = max(worst[key], float(gap))
+        for key, got, want in (("stats", stats, stats_p), ("grads", dgrads, dgrads_p)):
+            gap = ((got - want).abs() / want.abs().clamp(min=1e-30)).max()
+            worst[key] = max(worst[key], float(gap))
+        if not torch.equal(stats[2], stats_p[2]):
+            raise AssertionError("bn_relu: the clamp's channels differ from the plain version's")
+    return worst
+
+
+# The kernels against the plain version over a step's layers: the same
+# float32 operations, float64 sums in another order, so statistics within
+# two float32 ulps, y and dx within 1e-6 of their largest value in float32
+# and one bfloat16 ulp (2^-7) of it in bfloat16 (tests/test_torch_cuda.py).
+BN_BARS = {"float32": {"y": 1e-6, "dx": 1e-6, "stats": 2.4e-7, "grads": 2.4e-7},
+           "bfloat16": {"y": 2.0**-7, "dx": 2.0**-7, "stats": 2.4e-7, "grads": 2.4e-7}}
+
+
+def check_bn_relu_kernel():
+    """The fused batch norm + ReLU pair against its plain version over the
+    layers of a PilotNet x3 step, in float32 and bfloat16."""
+    import torch
+
+    rows = {}
+    for dtype in ("float32", "bfloat16"):
+        layers = bn_relu_layers(BN_NETS[0], dtype)
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        grads = [torch.empty_like(x).normal_(generator=gen) for x, *_ in layers]
+        worst = _bn_relu_both(layers, grads)
+        rows[dtype] = worst
+        shapes = [tuple(x.shape) for x, *_ in layers]
+        print(f"bn_relu ({dtype}, {len(layers)} layers of a PilotNet x{BN_NETS[0]} step: "
+              f"{shapes}): largest gaps from the plain version {json.dumps(worst)}", flush=True)
+        over = {k: v for k, v in worst.items() if v > BN_BARS[dtype][k]}
+        if over:
+            raise AssertionError(f"bn_relu {dtype}: over BN_BARS {over}")
+    return rows
+
+
+def time_bn_relu_kernel():
+    """Device ms of the fused pair over one step's layers (forward and
+    backward), for PilotNet x3 and x12 at batch 1,024 in float32, beside the
+    bound (each input byte read once, each output written once, at the
+    memory rate), the two-pass design's own traffic, the plain version and
+    the op-by-op PyTorch expression it replaced (``_bn_train``, the cast and
+    the ReLU through autograd)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pilotguru_tpu_torch.ml import bn_relu_kernel as bk
+    from pilotguru_tpu_torch.ml import folded
+
+    rows = []
+    for nets in BN_NETS:
+        layers = bn_relu_layers(nets)
+        grads = [torch.ones_like(x) for x, *_ in layers]
+
+        def fused():
+            for (x, scale, bias, mean_ra, var_ra), g in zip(layers, grads):
+                _, stats = bk._forward_cuda(x, scale, bias, mean_ra, var_ra, 1e-5, 0.9)
+                bk._backward_cuda(g, x, scale, bias, stats)
+
+        def plain():
+            for (x, scale, bias, mean_ra, var_ra), g in zip(layers, grads):
+                _, stats = bk.bn_relu_train_plain(x, scale, bias, mean_ra, var_ra, 1e-5, 0.9)
+                bk.bn_relu_backward_plain(g, x, scale, bias, stats)
+
+        def replaced():
+            for (x, scale, bias, mean_ra, var_ra), g in zip(layers, grads):
+                xr, sr, br = (t.detach().requires_grad_(True) for t in (x, scale, bias))
+                axes, shape = ((0, 2, 3), (1, -1, 1, 1)) if x.dim() == 4 else ((0,), (1, -1))
+                y, _, _ = folded._bn_train(xr, axes, sr, br, mean_ra, var_ra, shape)
+                F.relu(y.to(x.dtype)).backward(g)
+
+        activation = sum(x.numel() * x.element_size() for x, *_ in layers)
+        elements = sum(x.numel() for x, *_ in layers)
+        # Forward reads x, writes y; backward reads g and x, writes dx. About
+        # 24 float32 operations an element over the four passes.
+        row = {"nets": nets, "layers": len(layers), "activation_bytes": activation,
+               **bound(5 * activation, 24 * elements)}
+        row["design_ms"] = 1e3 * 8 * activation / PEAK_BYTES_PER_S
+        row["ms"], row["wall_ms"] = time_ms(fused, reps=10)
+        row["plain_ms"], _ = time_ms(plain, reps=3)
+        row["replaced_ms"], _ = time_ms(replaced, reps=10)
+        rows.append(row)
+        print(f"bn_relu, the {len(layers)} batch norms of a PilotNet x{nets} step at batch "
+              f"{BN_BATCH} ({activation / 1e9:.3f} GB of activations), forward and backward: "
+              f"device ms {row['ms']:.4f}, bound {row['bound_ms']:.4f} ({row['bound_by']}; "
+              f"5 passes), the design's 8 passes {row['design_ms']:.4f}, plain "
+              f"{row['plain_ms']:.4f}, the op-by-op expression it replaced "
+              f"{row['replaced_ms']:.4f}; wall ms {row['wall_ms']:.4f}", flush=True)
+        del layers, grads
+        torch.cuda.empty_cache()
+    return rows
 
 
 def check_extractor_cuda_vs_cpu(gray, patch_impl):
@@ -4107,6 +4272,7 @@ def main() -> int:
         return 2
     import pilotguru_tpu_torch  # noqa: F401  (precision policy)
     from pilotguru_tpu_torch import cuda_lib
+    from pilotguru_tpu_torch.ml import bn_relu_kernel
 
     started = time.perf_counter()
 
@@ -4136,6 +4302,7 @@ def main() -> int:
     k1 = check_fast_kernel(rng)
     k2 = check_patch_kernel(rng)
     k3 = check_blur_patch_kernel(rng)
+    bn = check_bn_relu_kernel()
 
     t0 = time.perf_counter()
     ride = list(render_ride())
@@ -4215,7 +4382,10 @@ def main() -> int:
         lanes = []
         mark("the forward pass's and the train step's timings")
         forward_timings(frame_rows["inputs"]["checkpoints"])
+        bn_before = bn_relu_kernel.COUNTER.launches + bn_relu_kernel.BACKWARD_COUNTER.launches
         train_throughput()
+        bn_launches = (bn_relu_kernel.COUNTER.launches
+                       + bn_relu_kernel.BACKWARD_COUNTER.launches - bn_before)
         mark("the kernel timings")
     finally:
         for lane in lanes:
@@ -4228,6 +4398,7 @@ def main() -> int:
 
     (k1, k1_levels), (k2, k2_levels) = time_fast_kernel(k1, loop_ride[0]), time_patch_kernel(k2)
     k3, k3_levels = time_blur_patch_kernel(k3)
+    bn_rows = time_bn_relu_kernel()
     torch.cuda.synchronize()
 
     def entry(name, source, replaces, shape, row, one_level=None):
@@ -4264,6 +4435,15 @@ def main() -> int:
         entry("gather_blurred_patches", "pilotguru_tpu_torch/csrc/blur_patch_gather.cu",
               "pilotguru_tpu/vo/patch_pallas.py:176",
               "8 levels of 720x1280, K=2000, one launch", k3_levels, k3[0]),
+        {"name": "bn_relu", "route": "cuda", "source": "pilotguru_tpu_torch/csrc/bn_relu.cuh",
+         "replaces": None,  # no TPU kernel: XLA fuses the JAX package's expression
+         "launches": bn_launches, "launches_by_path": {"train_throughput": bn_launches},
+         "shape": f"the train-mode batch norms of a PilotNet x{BN_NETS[0]} step at batch "
+                  f"{BN_BATCH}, forward and backward",
+         "max_abs_err": bn, **{k: bn_rows[0][k] for k in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "design_ms", "replaced_ms")},
+         "x12": {k: bn_rows[1][k] for k in (
+             "ms", "plain_ms", "bound_ms", "design_ms", "replaced_ms")}},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,12 +1,15 @@
 """Build and load the hand-written CUDA kernels of the port.
 
-Every ``*.cu`` file under ``csrc/`` is compiled by its own ``nvcc`` process
+Every ``*.cu`` file under ``csrc/`` (with the ``*.cuh`` headers there) is
+compiled by its own ``nvcc`` process
 for Hopper (``sm_90a``), all started together, into a shared library with a
-plain C interface, loaded with ``ctypes``. The build happens at first use,
+plain C interface, loaded with ``ctypes``; ``library(stem)`` builds and loads
+one source alone (the training path's, so that it does not wait for the VO
+kernels' builds). The build happens at first use,
 from the sources in the checkout only, into ``pilotguru_tpu_torch/build/``
-(git-ignored); each library's file name carries a digest of its source and
-the flags, so an edited kernel is rebuilt and a stale library is never
-loaded.
+(git-ignored); each library's file name carries a digest of its source, the
+headers and the flags, so an edited kernel is rebuilt and a stale library
+is never loaded.
 
 Each C entry point takes raw device pointers, the sizes and the CUDA stream,
 launches on that stream without synchronising, and returns
@@ -74,6 +77,18 @@ class BlurLevels(ctypes.Structure):
     ]
 
 
+class BnArgs(ctypes.Structure):
+    """PgBn of csrc/bn_relu.cuh: one call's tensors and sizes."""
+
+    _fields_ = [
+        ("x", _VOIDP), ("g", _VOIDP), ("out", _VOIDP), ("scale", _VOIDP), ("bias", _VOIDP),
+        ("mean_ra", _VOIDP), ("var_ra", _VOIDP), ("stats", _VOIDP), ("grads", _VOIDP),
+        ("partial", _VOIDP), ("rows", ctypes.c_longlong), ("channels", _INT), ("vec", _INT),
+        ("tiles", _INT), ("parts", _INT), ("groups", _INT), ("eps", ctypes.c_float),
+        ("momentum", ctypes.c_float), ("one_minus_momentum", ctypes.c_float),
+    ]
+
+
 _FLOATP = ctypes.POINTER(ctypes.c_float)
 # C signature of each entry point: (argtypes, restype).
 _SIGNATURES = {
@@ -85,6 +100,9 @@ _SIGNATURES = {
     "pg_blur_patch_gather_levels": (
         [ctypes.POINTER(BlurLevels), _VOIDP, _FLOATP, _VOIDP, _INT, _INT, _VOIDP], _INT
     ),
+    # args, stream
+    **{f"pg_bn_relu_{way}_{dtype}": ([ctypes.POINTER(BnArgs), _VOIDP], _INT)
+       for way in ("forward", "backward") for dtype in ("f32", "bf16")},
 }
 
 
@@ -108,23 +126,26 @@ def _nvcc() -> str:
     )
 
 
-def _sources():
-    sources = sorted(CSRC_DIR.glob("*.cu"))
+def _sources(stem=None):
+    sources = sorted(CSRC_DIR.glob("*.cu" if stem is None else f"{stem}.cu"))
     if not sources:
-        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+        raise RuntimeError(f"no CUDA source {stem or '*'}.cu under {CSRC_DIR}")
     return sources
 
 
 def _target(src: Path) -> Path:
     digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):  # what a source may include
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libpg_{src.stem}-{digest.hexdigest()[:16]}.so"
 
 
-def build() -> BuildResult:
-    """Compile each csrc/*.cu into build/libpg_<name>-<digest>.so (where not
-    built yet), one nvcc process per source, all running at once."""
-    sources = _sources()
+def build(stem=None) -> BuildResult:
+    """Compile each csrc/*.cu (or csrc/<stem>.cu alone) into
+    build/libpg_<name>-<digest>.so where not built yet, one nvcc process per
+    source, all running at once."""
+    sources = _sources(stem)
     targets = [_target(src) for src in sources]
     todo = [(src, t) for src, t in zip(sources, targets) if not t.exists()]
     if not todo:
@@ -154,15 +175,18 @@ def build() -> BuildResult:
 
 
 class _Kernels:
-    """The entry points of every kernel library, as attributes."""
+    """The entry points of the loaded kernel libraries, as attributes; with
+    every library loaded, each entry point is found exactly once."""
 
-    def __init__(self, libs):
+    def __init__(self, libs, every_source):
         for name, (argtypes, restype) in _SIGNATURES.items():
             found = [getattr(lib, name) for lib in libs if hasattr(lib, name)]
-            if len(found) != 1:
+            if len(found) > 1 or (every_source and not found):
                 raise RuntimeError(
                     f"CUDA entry point {name} found in {len(found)} kernel libraries"
                 )
+            if not found:
+                continue
             fn = found[0]
             fn.argtypes = argtypes
             fn.restype = restype
@@ -170,9 +194,10 @@ class _Kernels:
 
 
 @functools.cache
-def library() -> _Kernels:
-    """The loaded kernel libraries, built on first call."""
-    return _Kernels([ctypes.CDLL(str(path)) for path in build().paths])
+def library(stem=None) -> _Kernels:
+    """The loaded kernel libraries, built on first call: every source's, or
+    csrc/<stem>.cu's alone."""
+    return _Kernels([ctypes.CDLL(str(path)) for path in build(stem).paths], stem is None)
 
 
 def current_stream(device) -> int:

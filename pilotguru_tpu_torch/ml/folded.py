@@ -8,7 +8,9 @@ Each net's math is unchanged; the ensemble axis rides in the channels:
 - conv2 to conv5 are grouped convolutions (``groups=N``): each net's
   channels feed only its own;
 - batch norm is per channel, so over the N * C folded channels it computes
-  each net's own statistics;
+  each net's own statistics; in train mode on the card, the batch norm, its
+  cast to the compute dtype and the ReLU run as one hand-written kernel
+  pair (ml/bn_relu_kernel.py), on the CPU as PyTorch ops (``_bn_train``);
 - the fully connected layers are batched per-net products (``einsum`` over
   the net axis, a cuBLAS batched GEMM).
 
@@ -34,7 +36,9 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from pilotguru_tpu_torch.ml import bn_relu_kernel
 from pilotguru_tpu_torch.ml import models as models_lib
+from pilotguru_tpu_torch.utils import profiling
 
 # Conv strides per block for each foldable trunk (kernel sizes and channel
 # counts are read off the parameter shapes; strides are architecture).
@@ -170,14 +174,24 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
     new_stats = {name: {k: dict(v) for k, v in block.items()}
                  for name, block in batch_stats.items()}
 
-    def bn_apply(x, block_name, reduce_axes, shape):
+    def bn_relu(x, block_name, reduce_axes, shape):
+        """relu(batch norm of x in float32, cast to the compute dtype). In
+        train mode a CUDA tensor goes through the fused kernels
+        (ml/bn_relu_kernel.py), a CPU tensor through ``_bn_train``."""
         bn_params = params[block_name]["BatchNorm_0"]
         stats = batch_stats[block_name]["BatchNorm_0"]
         scale, bias = bn_params["scale"].reshape(-1), bn_params["bias"].reshape(-1)
         mean_ra, var_ra = stats["mean"].reshape(-1), stats["var"].reshape(-1)
         if not train:
-            return _bn_eval(x, scale, bias, mean_ra, var_ra, shape)
-        y, new_mean, new_var = _bn_train(x, reduce_axes, scale, bias, mean_ra, var_ra, shape)
+            return F.relu(_bn_eval(x, scale, bias, mean_ra, var_ra, shape).to(dtype))
+        if x.is_cuda:
+            profiling.count("folded.bn_fused")
+            y, new_mean, new_var = bn_relu_kernel.bn_relu_train(
+                x, scale, bias, mean_ra, var_ra, _BN_EPS, _BN_MOMENTUM)
+        else:
+            y, new_mean, new_var = _bn_train(x, reduce_axes, scale, bias, mean_ra, var_ra,
+                                             shape)
+            y = F.relu(y.to(dtype))
         per_net = stats["mean"].shape
         new_stats[block_name]["BatchNorm_0"] = {"mean": new_mean.reshape(per_net),
                                                 "var": new_var.reshape(per_net)}
@@ -192,9 +206,7 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
         # kernels concatenated; later layers: block-diagonal groups.
         x = F.conv2d(x, fold_conv_kernel(k).to(dtype), b.reshape(-1).to(dtype),
                      stride=stride, groups=1 if i == 0 else n)
-        if conv_bn:
-            x = bn_apply(x, name, (0, 2, 3), (1, -1, 1, 1)).to(dtype)
-        x = F.relu(x)
+        x = bn_relu(x, name, (0, 2, 3), (1, -1, 1, 1)) if conv_bn else F.relu(x)
         if p_drop > 0:
             # DROPOUT_2D: whole channels (one draw per example and channel).
             x = drop(x, (x.shape[0], x.shape[1], 1, 1))
@@ -210,8 +222,9 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
         g = wk.shape[-1]
         x = torch.einsum("bnf,nfg->bng", x, wk) + wb[None]
         if fc_bn:
-            x = bn_apply(x.reshape(bsz, n * g), name, (0,), (1, -1)).reshape(bsz, n, g).to(dtype)
-        x = F.relu(x)
+            x = bn_relu(x.reshape(bsz, n * g), name, (0,), (1, -1)).reshape(bsz, n, g)
+        else:
+            x = F.relu(x)
         # Only FcBlock_0 carries dropout (NvidiaSingleFrameNet gives the
         # others 0), one draw per activation.
         if p_drop > 0 and j == 0:

@@ -516,3 +516,189 @@ def test_folded_train_step_on_the_card_matches_the_cpu(cuda):
         # Adam's first step is about +-lr: 99% within 1% of it; elements
         # whose gradient is within rounding of 0 may take either sign.
         assert np.mean(np.abs(got - want) <= 1e-5) > 0.99, name
+
+
+# ------------------------------------------------- fused batch norm + ReLU
+# The folded train step's train-mode batch norms at the cells' shapes: conv
+# outputs channels-last, as cuDNN leaves them on the folded path, and the FC
+# blocks' [B, C].
+BN_SHAPES = {
+    "train_conv1": (1024, 72, 31, 98),
+    "train_conv5": (1024, 192, 1, 18),
+    "train_fc1": (1024, 300),
+    "search_conv1": (1024, 288, 31, 98),
+}
+
+
+def _bn_case(device, shape, dtype, channels_last=True, seed=0):
+    """(x, g, scale, bias, mean_ra, var_ra) from a seed, on ``device``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+
+    def normal(*size):
+        return torch.randn(size, generator=gen, device=device)
+
+    fmt = torch.channels_last if channels_last and len(shape) == 4 else torch.contiguous_format
+    x = (normal(*shape) * 1.5 + normal(1, c, *[1] * (len(shape) - 2))).to(dtype)
+    g = normal(*shape).to(dtype)
+    x, g = x.contiguous(memory_format=fmt), g.contiguous(memory_format=fmt)
+    return (x, g, 1.0 + 0.2 * normal(c), 0.3 * normal(c), 0.1 * normal(c),
+            1.0 + normal(c).abs())
+
+
+def _bn_kernel_and_plain(x, g, scale, bias, mean_ra, var_ra):
+    """Forward and backward through the kernels and the plain version; the
+    plain backward runs from the kernels' statistics, so both apply the
+    same ReLU mask."""
+    from pilotguru_tpu_torch.ml import bn_relu_kernel as bk
+
+    y, stats = bk._forward_cuda(x, scale, bias, mean_ra, var_ra, 1e-5, 0.9)
+    dx, grads = bk._backward_cuda(g, x, scale, bias, stats)
+    y_plain, stats_plain = bk.bn_relu_train_plain(x, scale, bias, mean_ra, var_ra, 1e-5, 0.9)
+    dx_plain, grads_plain = bk.bn_relu_backward_plain(g, x, scale, bias, stats)
+    torch.cuda.synchronize()
+    return (y, stats, dx, grads), (y_plain, stats_plain, dx_plain, grads_plain)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(BN_SHAPES))
+def test_bn_relu_kernel_matches_plain(cuda, name, dtype):
+    """Every float32 operation is the same in both, rounded the same; only
+    the float64 sums run in another order, so a statistic, dscale or dbias
+    may round one float32 ulp apart (rtol 2.4e-7 is two ulps). y and dx then
+    move by a few float32 ulps of their largest term (1e-6 of the largest
+    value), or, rounded to bfloat16, by one bfloat16 ulp (2^-7 of it)."""
+    (y, stats, dx, grads), (y_p, stats_p, dx_p, grads_p) = _bn_kernel_and_plain(
+        *_bn_case(cuda, BN_SHAPES[name], dtype))
+    assert y.stride() == y_p.stride() and dx.stride() == dx_p.stride()
+    torch.testing.assert_close(stats[[0, 1, 3, 4]], stats_p[[0, 1, 3, 4]], rtol=2.4e-7, atol=0)
+    torch.testing.assert_close(stats[2], stats_p[2], rtol=0, atol=0)  # keep
+    torch.testing.assert_close(grads, grads_p, rtol=2.4e-7, atol=1e-9 * float(grads_p.abs().max()))
+    rel = 1e-6 if dtype == torch.float32 else 2.0**-7
+    for got, want in ((y, y_p), (dx, dx_p)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=rel,
+                                   atol=rel * float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+def test_bn_relu_takes_a_contiguous_activation_through_a_channels_last_copy(cuda):
+    """A contiguous [B, C, H, W] at conv1's shape: the kernels read a
+    channels-last copy; the values are the plain version's, within the
+    bars of the test above."""
+    from pilotguru_tpu_torch.ml import bn_relu_kernel as bk
+
+    x, g, scale, bias, mean_ra, var_ra = _bn_case(cuda, BN_SHAPES["train_conv1"], torch.float32,
+                                                  channels_last=False)
+    xr, sr, br = (t.clone().requires_grad_(True) for t in (x, scale, bias))
+    y, new_mean, new_var = bk.bn_relu_train(xr, sr, br, mean_ra, var_ra, 1e-5, 0.9)
+    y.backward(g)
+    y_p, stats_p = bk.bn_relu_train_plain(x, scale, bias, mean_ra, var_ra, 1e-5, 0.9)
+    dx_p, grads_p = bk.bn_relu_backward_plain(g, x, scale, bias, stats_p)
+    assert y.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(torch.stack([new_mean, new_var]), stats_p[3:], rtol=2.4e-7, atol=0)
+    torch.testing.assert_close(torch.stack([sr.grad, br.grad]), grads_p[:2], rtol=2.4e-7,
+                               atol=1e-9 * float(grads_p.abs().max()))
+    for got, want in ((y, y_p), (xr.grad, dx_p)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["train_conv1", "train_fc1"])
+def test_bn_relu_kernel_repeats_to_the_bit(cuda, name):
+    from pilotguru_tpu_torch.ml import bn_relu_kernel as bk
+
+    x, g, scale, bias, mean_ra, var_ra = _bn_case(cuda, BN_SHAPES[name], torch.float32)
+    runs = []
+    for _ in range(2):
+        y, stats = bk._forward_cuda(x, scale, bias, mean_ra, var_ra, 1e-5, 0.9)
+        dx, grads = bk._backward_cuda(g, x, scale, bias, stats)
+        runs.append((y, stats, dx, grads))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_bn_relu_kernels_run_nine_times_a_folded_train_step(cuda):
+    """One folded PilotNet x3 train step (5 conv and 4 FC batch norms): 9
+    forward and 9 backward launches, 9 ``folded.bn_fused`` tallies and no
+    other, no plain call."""
+    from pilotguru_tpu_torch.ml import augmentation, bn_relu_kernel, models, training
+    from pilotguru_tpu_torch.utils import profiling
+
+    options = {"net_name": "nvidia", "net_head_dims": 10, "label_dimensions": 1,
+               "dropout_prob": 0.0, "compute_dtype": "float32"}
+    model = models.make_network(options, [{"input_name": "forward_axis", "input_dims": 3}],
+                                (66, 200, 3))
+    settings = training.TrainSettings(epochs=1, batch_size=32,
+                                      augment=augmentation.AugmentSettings(target_width=200))
+    tx = training.make_optimizer("sgd", 1e-3)
+    rng = np.random.default_rng(4)
+    batch = {"frame_img": torch.as_tensor(rng.integers(0, 256, (32, 66, 200, 3),
+                                                       dtype=np.uint8)).to(cuda),
+             "forward_axis": torch.as_tensor(rng.normal(size=(32, 3)).astype(np.float32)).to(cuda)}
+    labels = torch.zeros((32, 1), device=cuda)
+    state = training.init_ensemble(model, {}, 3, tx, seed=1, device=cuda)
+    step = training.make_train_step(model, tx, settings)
+    counters = (bn_relu_kernel.COUNTER, bn_relu_kernel.BACKWARD_COUNTER)
+    before = [(c.launches, c.plain_cuda_calls) for c in counters]
+    timer = profiling.StageTimer("step")
+    with profiling.recording(timer):
+        step(state, batch, labels, torch.ones((3, 32), device=cuda),
+             torch.ones(3, dtype=torch.bool, device=cuda), torch.Generator(device=cuda))
+    torch.cuda.synchronize()
+    assert [(c.launches - n, c.plain_cuda_calls - p)
+            for c, (n, p) in zip(counters, before)] == [(9, 0), (9, 0)]
+    assert timer.tallies == {"folded.bn_fused": 9}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_bn_relu_kernel_refuses_other_dtypes(cuda, dtype):
+    from pilotguru_tpu_torch.ml import bn_relu_kernel as bk
+
+    x = torch.ones((8, 4), dtype=dtype, device=cuda)
+    params = [torch.ones(4, device=cuda) for _ in range(4)]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bk.bn_relu_train(x, *params, 1e-5, 0.9)
+
+
+@pytest.mark.cuda
+def test_folded_train_step_repeats_to_the_bit_on_the_card(cuda):
+    """Two folded PilotNet x3 SGD steps at batch 256 from equal states on the
+    same batch, under the training loop's deterministic cuDNN: the same
+    losses, parameters and batch statistics to the bit (the fused batch
+    norm sums in a fixed order, with no float atomics)."""
+    from pilotguru_tpu_torch.ml import augmentation, models, training
+
+    options = {"net_name": "nvidia", "net_head_dims": 10, "label_dimensions": 2,
+               "dropout_prob": 0.0, "compute_dtype": "float32"}
+    model = models.make_network(options, [{"input_name": "forward_axis", "input_dims": 3}],
+                                (66, 200, 3))
+    settings = training.TrainSettings(epochs=1, batch_size=256,
+                                      augment=augmentation.AugmentSettings(target_width=200))
+    tx = training.make_optimizer("sgd", 1e-2)
+    rng = np.random.default_rng(8)
+    batch = {"frame_img": torch.as_tensor(rng.integers(0, 256, (256, 66, 200, 3),
+                                                       dtype=np.uint8)).to(cuda),
+             "forward_axis": torch.as_tensor(rng.normal(size=(256, 3)).astype(np.float32)).to(cuda)}
+    labels = torch.as_tensor(rng.normal(0, 0.3, (256, 2)).astype(np.float32)).to(cuda)
+    step = training.make_train_step(model, tx, settings)
+
+    def leaves(tree):
+        return [v for t in tree.values() for v in (leaves(t) if isinstance(t, dict) else [t])]
+
+    runs = []
+    with training._deterministic_cudnn():
+        for _ in range(2):
+            state = training.init_ensemble(model, {}, 3, tx, seed=1, device=cuda)
+            state, losses, per_example = step(
+                state, batch, labels, torch.ones((3, 256), device=cuda),
+                torch.ones(3, dtype=torch.bool, device=cuda),
+                torch.Generator(device=cuda).manual_seed(0))
+            runs.append([losses, per_example, *leaves(state.params), *leaves(state.batch_stats)])
+    torch.cuda.synchronize()
+    assert len(runs[0]) == len(runs[1]) > 2
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
