@@ -1,32 +1,40 @@
-"""The PilotNet ensemble folded into channels: N nets as one program (port
-of pilotguru_tpu/ml/folded.py).
+"""A foldable net's ensemble folded into channels: N nets as one program
+(port of pilotguru_tpu/ml/folded.py, which folds the PilotNet trunk).
 
-Each net's math is unchanged; the ensemble axis rides in the channels:
+A foldable net (PilotNet, the Udacity Rambo net) is its trunks
+(``model.trunks``, ml/models.py): each reads the frame through conv blocks,
+flattens and runs FC blocks, then, in Rambo, its own dense head; the
+trunks' outputs are concatenated into the net's last dense layer. Each
+net's math is unchanged; the ensemble axis rides in the channels:
 
-- conv1 sees the same image for every net, so it is one plain convolution
-  with N * 24 outputs, the nets' kernels concatenated group-major;
-- conv2 to conv5 are grouped convolutions (``groups=N``): each net's
+- a trunk's first conv sees the same image for every net, so it is one
+  plain convolution with N * C outputs, the nets' kernels concatenated
+  group-major;
+- its later convs are grouped convolutions (``groups=N``): each net's
   channels feed only its own;
 - batch norm is per channel, so over the N * C folded channels it computes
   each net's own statistics; in train mode on the card, the batch norm, its
   cast to the compute dtype and the ReLU run as one hand-written kernel
   pair (ml/bn_relu_kernel.py), on the CPU as PyTorch ops (``_bn_train``);
-- the fully connected layers are batched per-net products (``einsum`` over
-  the net axis, a cuBLAS batched GEMM).
+- the dense layers are batched per-net products (``einsum`` over the net
+  axis, a cuBLAS batched GEMM).
 
+Strides, dropout rates and whether a block has batch norm are read off the
+model's blocks; kernel sizes and channel counts off the parameter shapes.
 The parameters stay in the stacked per-net layout of the training state
 (``[N, ...]`` leaves in the flax tree's names and layouts: HWIO conv
 kernels, (in, out) dense kernels); the fold is a reshape inside the
-forward, so gradients reach the per-net leaves. The trunk runs NCHW, and
+forward, so gradients reach the per-net leaves. The trunks run NCHW, and
 each net's flatten keeps the flax (h, w, c) order. The convolutions and
 products are cuDNN's and cuBLAS's, as the JAX package leaves them to XLA.
 
-Dropout draws one mask over the folded channels from the given generator,
-as the JAX package's folded path draws one over its folded channels. A
-block of nets of a larger ensemble (the sharded train step, ml/training.py)
-takes its slices of the whole ensemble's masks instead
-(``ensemble_dropout_masks``, ``block_dropout_masks``), so each net keeps
-the draws it has unsharded.
+Dropout masks are drawn from the given generator over the folded channels,
+one for each block with a dropout rate, all before the forward runs, in
+``ensemble_dropout_masks``' order (the conv blocks, then the FC blocks, each
+by its flax index). A block of nets of a larger ensemble (the sharded train
+step, ml/training.py) takes its slices of the whole ensemble's masks
+instead (``block_dropout_masks``), so each net keeps the draws it has
+unsharded.
 """
 
 from __future__ import annotations
@@ -40,20 +48,14 @@ from pilotguru_tpu_torch.ml import bn_relu_kernel
 from pilotguru_tpu_torch.ml import models as models_lib
 from pilotguru_tpu_torch.utils import profiling
 
-# Conv strides per block for each foldable trunk (kernel sizes and channel
-# counts are read off the parameter shapes; strides are architecture).
-_FOLDABLE_STRIDES = {
-    models_lib.NVIDIA_NET_NAME: (2, 2, 2, 1, 1),
-}
-
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
 _BN_MOMENTUM = 0.9  # flax's convention
 
 
 def foldable(model) -> bool:
-    """True when the folded path computes this model (the PilotNet trunk)."""
-    return (type(model).__name__ == "NvidiaSingleFrameNet"
-            and model.options.get(models_lib.NET_NAME) in _FOLDABLE_STRIDES)
+    """True when the folded path computes this model: PilotNet or the
+    Udacity Rambo net."""
+    return isinstance(model, (models_lib.NvidiaSingleFrameNet, models_lib.UdacityRamboNet))
 
 
 def fold_conv_kernel(k: torch.Tensor) -> torch.Tensor:
@@ -94,31 +96,36 @@ def _dropout_mask(generator, shape, rate, dtype, device):
     return torch.where(keep, 1.0 / (1.0 - rate), 0.0).to(dtype)
 
 
-def _ordered(params, prefix):
-    return sorted((k for k in params if k.startswith(prefix)),
-                  key=lambda s: int(s.split("_")[1]))
-
-
-def _dropout_prob(model, train: bool) -> float:
-    return model.options.get(models_lib.DROPOUT_PROB, 0.0) if train else 0.0
+def _dropout_blocks(model) -> List[Tuple[str, float]]:
+    """(flax name, dropout rate) of each block that drops out in train
+    mode, in the masks' order: the conv blocks, then the FC blocks, each by
+    its index."""
+    return ([(f"ConvBlock_{i}", b.dropout_prob) for i, b in enumerate(model.conv_blocks)
+             if b.dropout_prob > 0]
+            + [(f"FcBlock_{j}", b.dropout_prob) for j, b in enumerate(model.fc_blocks)
+               if b.dropout_prob > 0])
 
 
 def ensemble_dropout_masks(model, params: Dict, num_nets: int, batch: int,
                            generator: torch.Generator) -> List[torch.Tensor]:
-    """The dropout masks ``folded_forward`` draws in train mode for an
+    """The dropout masks ``folded_forward`` takes in train mode for an
     ensemble of ``num_nets`` nets shaped like ``params`` (the stacked
-    trees of any block of it) on ``batch`` examples, in its order, from
-    ``generator`` on its device: one [B, N * C, 1, 1] per conv block, then
-    FcBlock_0's [B, N, G]. Empty when the model has no dropout."""
-    p_drop = _dropout_prob(model, True)
-    if p_drop <= 0:
+    trees of any block of it) on ``batch`` examples, in
+    ``_dropout_blocks``' order, from ``generator`` on its device: a
+    [B, N * C, 1, 1] for a conv block (whole channels), a [B, N, G] for an
+    FC block. Empty when the model has no dropout."""
+    blocks = _dropout_blocks(model)
+    if not blocks:
         return []
     dtype = models_lib.resolve_compute_dtype(model.options, generator.device)
-    shapes = [(batch, num_nets * params[name]["Conv_0"]["kernel"].shape[-1], 1, 1)
-              for name in _ordered(params, "ConvBlock_")]
-    fc0 = _ordered(params, "FcBlock_")[0]
-    shapes.append((batch, num_nets, params[fc0]["Dense_0"]["kernel"].shape[-1]))
-    return [_dropout_mask(generator, shape, p_drop, dtype, generator.device) for shape in shapes]
+    masks = []
+    for name, rate in blocks:
+        if name.startswith("ConvBlock_"):
+            shape = (batch, num_nets * params[name]["Conv_0"]["kernel"].shape[-1], 1, 1)
+        else:
+            shape = (batch, num_nets, params[name]["Dense_0"]["kernel"].shape[-1])
+        masks.append(_dropout_mask(generator, shape, rate, dtype, generator.device))
+    return masks
 
 
 def block_dropout_masks(masks: List[torch.Tensor], num_nets: int, lo: int, hi: int,
@@ -140,37 +147,26 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
                    ) -> Tuple[torch.Tensor, Dict]:
     """Run the stacked-[N]-leaf ensemble as one folded program.
 
-    model: the foldable net (its options and LinearBias inputs are read);
-    params / batch_stats: stacked per-net trees; inputs: FRAME_IMG
-    [B, H, W, C] float and the LinearBias inputs [B, D]; train: batch-norm
-    and dropout mode; generator: dropout's draws (when its rate > 0 and
-    train), or ``dropout_masks``, the masks themselves in draw order
-    (``block_dropout_masks``). Returns (out [N, B, label_dims] in float32,
-    or in the compute dtype where it is wider, and the new batch_stats
-    stacked like the input's; the input's in eval mode)."""
-    options = model.options
-    blocks = options.get(models_lib.LAYER_BLOCKS_OPTIONS,
-                         models_lib.DEFAULT_LAYER_BLOCKS_OPTIONS)
-    conv_bn = blocks[models_lib.CONV][models_lib.BATCHNORM]
-    fc_bn = blocks[models_lib.FC][models_lib.BATCHNORM]
-    if (blocks[models_lib.CONV][models_lib.ACTIVATION] != models_lib.RELU
-            or blocks[models_lib.FC][models_lib.ACTIVATION] != models_lib.RELU):
+    model: the foldable net (its trunks, blocks, options and LinearBias
+    inputs are read); params / batch_stats: stacked per-net trees; inputs:
+    FRAME_IMG [B, H, W, C] float and the LinearBias inputs [B, D]; train:
+    batch-norm and dropout mode; generator: dropout's draws (when a rate is
+    above 0 and train), or ``dropout_masks``, the masks themselves
+    (``ensemble_dropout_masks``, ``block_dropout_masks``). Returns (out
+    [N, B, label_dims] in float32, or in the compute dtype where it is
+    wider, and the new batch_stats stacked like the input's; the input's in
+    eval mode)."""
+    if any(b.act is not F.relu for b in (*model.conv_blocks, *model.fc_blocks)):
         raise NotImplementedError("folded path supports relu trunks only")
-    p_drop = _dropout_prob(model, train)
-    masks = iter(dropout_masks) if dropout_masks is not None else None
-
-    def drop(x, shape):
-        if masks is not None:
-            return x * next(masks)
-        return x * _dropout_mask(generator, shape, p_drop, x.dtype, x.device)
-
     frame = inputs[models_lib.FRAME_IMG]
-    dtype = models_lib.resolve_compute_dtype(options, frame.device)
-    strides = _FOLDABLE_STRIDES[options[models_lib.NET_NAME]]
-    conv_names = _ordered(params, "ConvBlock_")
-    fc_names = _ordered(params, "FcBlock_")
-    assert len(conv_names) == len(strides), (conv_names, strides)
-    n = params[conv_names[0]]["Conv_0"]["kernel"].shape[0]
+    dtype = models_lib.resolve_compute_dtype(model.options, frame.device)
+    n = params["ConvBlock_0"]["Conv_0"]["kernel"].shape[0]
+    bsz = frame.shape[0]
+    masks = {}
+    if train:
+        if dropout_masks is None:
+            dropout_masks = ensemble_dropout_masks(model, params, n, bsz, generator)
+        masks = {name: m for (name, _), m in zip(_dropout_blocks(model), dropout_masks)}
     new_stats = {name: {k: dict(v) for k, v in block.items()}
                  for name, block in batch_stats.items()}
 
@@ -197,43 +193,52 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
                                                 "var": new_var.reshape(per_net)}
         return y
 
-    # ------------------------------------------------------- conv trunk
-    x = frame.permute(0, 3, 1, 2).to(dtype)
-    for i, (name, stride) in enumerate(zip(conv_names, strides)):
-        k = params[name]["Conv_0"]["kernel"]  # [N, kh, kw, cin, cout]
-        b = params[name]["Conv_0"]["bias"]  # [N, cout]
-        # Layer 1: every net reads the same image, a plain conv with the
-        # kernels concatenated; later layers: block-diagonal groups.
-        x = F.conv2d(x, fold_conv_kernel(k).to(dtype), b.reshape(-1).to(dtype),
-                     stride=stride, groups=1 if i == 0 else n)
-        x = bn_relu(x, name, (0, 2, 3), (1, -1, 1, 1)) if conv_bn else F.relu(x)
-        if p_drop > 0:
-            # DROPOUT_2D: whole channels (one draw per example and channel).
-            x = drop(x, (x.shape[0], x.shape[1], 1, 1))
+    def dense(x, layer):
+        """x [B, N, F] through the per-net dense ``layer`` (its stacked
+        parameters): [B, N, G]."""
+        wk = layer["kernel"].to(dtype)  # [N, F, G]
+        wb = layer["bias"].to(dtype)  # [N, G]
+        return torch.einsum("bnf,nfg->bng", x, wk) + wb[None]
 
-    # ------------------------------------------------- flatten per net
-    bsz, nc, h, w = x.shape
-    x = x.reshape(bsz, n, nc // n, h, w).permute(0, 1, 3, 4, 2).reshape(bsz, n, -1)
+    image = frame.permute(0, 3, 1, 2).to(dtype)
+    outs = []
+    for trunk in model.trunks:
+        # --------------------------------------------------- conv blocks
+        x = image
+        for pos, i in enumerate(trunk.convs):
+            name, block = f"ConvBlock_{i}", model.conv_blocks[i]
+            k = params[name]["Conv_0"]["kernel"]  # [N, kh, kw, cin, cout]
+            b = params[name]["Conv_0"]["bias"]  # [N, cout]
+            # The trunk's first conv: every net reads the same image, a
+            # plain conv with the kernels concatenated; later convs:
+            # block-diagonal groups.
+            x = F.conv2d(x, fold_conv_kernel(k).to(dtype), b.reshape(-1).to(dtype),
+                         stride=block.layer.stride, groups=1 if pos == 0 else n)
+            x = bn_relu(x, name, (0, 2, 3), (1, -1, 1, 1)) if block.bn is not None else F.relu(x)
+            if name in masks:
+                x = x * masks[name]  # DROPOUT_2D: whole channels
 
-    # ------------------------------------------------------- FC trunk
-    for j, name in enumerate(fc_names):
-        wk = params[name]["Dense_0"]["kernel"].to(dtype)  # [N, F, G]
-        wb = params[name]["Dense_0"]["bias"].to(dtype)  # [N, G]
-        g = wk.shape[-1]
-        x = torch.einsum("bnf,nfg->bng", x, wk) + wb[None]
-        if fc_bn:
-            x = bn_relu(x.reshape(bsz, n * g), name, (0,), (1, -1)).reshape(bsz, n, g)
-        else:
-            x = F.relu(x)
-        # Only FcBlock_0 carries dropout (NvidiaSingleFrameNet gives the
-        # others 0), one draw per activation.
-        if p_drop > 0 and j == 0:
-            x = drop(x, x.shape)
+        # --------------------------------------------- flatten per net
+        _, nc, h, w = x.shape
+        x = x.reshape(bsz, n, nc // n, h, w).permute(0, 1, 3, 4, 2).reshape(bsz, n, -1)
 
-    # ------------------------------------------- label head + LinearBias
-    wk = params["Dense_0"]["kernel"].to(dtype)  # [N, head, L]
-    wb = params["Dense_0"]["bias"].to(dtype)  # [N, L]
-    out = torch.einsum("bnf,nfl->bnl", x, wk) + wb[None]
+        # ----------------------------------------------------- FC blocks
+        for j in trunk.fcs:
+            name = f"FcBlock_{j}"
+            x = dense(x, params[name]["Dense_0"])
+            g = x.shape[-1]
+            if model.fc_blocks[j].bn is not None:
+                x = bn_relu(x.reshape(bsz, n * g), name, (0,), (1, -1)).reshape(bsz, n, g)
+            else:
+                x = F.relu(x)
+            if name in masks:
+                x = x * masks[name]  # one draw per activation
+        if trunk.head is not None:
+            x = dense(x, params[f"Dense_{trunk.head}"])
+        outs.append(x)
+
+    # ----------------------------------- merge (label head) + LinearBias
+    out = dense(torch.cat(outs, dim=-1), params[f"Dense_{len(model.denses) - 1}"])
     for idx, meta in enumerate(model.linear_bias_inputs):
         lb = params[f"LinearBias_{idx}"]["Dense_0"]["kernel"]  # [N, D, L]
         cond = inputs[meta["input_name"]].to(dtype)  # [B, D]

@@ -37,7 +37,7 @@ checkpoints (``ml/convert.py``) carry across. In PyTorch idiom:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -222,6 +222,18 @@ class LinearBias(nn.Module):
         return pre_bias + self.dense(inputs[self.input_name].float())
 
 
+class Trunk(NamedTuple):
+    """One image trunk of a net, by the indices flax numbers its blocks
+    with: ``convs`` into conv_blocks, ``fcs`` into fc_blocks, then ``head``
+    into denses, the trunk's own dense layer (None where the FC blocks end
+    the trunk). A net's trunks read the same frame; their outputs are
+    concatenated into its last dense layer."""
+
+    convs: range
+    fcs: range
+    head: Optional[int]
+
+
 def _flatten(x: torch.Tensor) -> torch.Tensor:
     """NCHW -> [B, H * W * C] in the JAX package's (H, W, C) order."""
     return x.permute(0, 2, 3, 1).flatten(1)
@@ -288,6 +300,22 @@ class _ImageNetBase(nn.Module):
             out = bias(out, inputs)
         return out
 
+    def _trunks_forward(self, inputs, generator):
+        """The forward of a net described by ``self.trunks``: each trunk's
+        conv blocks, flatten, FC blocks and head dense; the trunks'
+        outputs concatenated through the last dense layer."""
+        frame, dt = self._frame(inputs)
+        outs = []
+        for trunk in self.trunks:
+            x = frame
+            for i in trunk.convs:
+                x = self.conv_blocks[i](x, dt, generator)
+            x = _flatten(x)
+            for i in trunk.fcs:
+                x = self.fc_blocks[i](x, dt, generator)
+            outs.append(x if trunk.head is None else _dense(x, self.denses[trunk.head]))
+        return self._post(_dense(torch.cat(outs, dim=1), self.denses[-1]), inputs)
+
 
 class ToyConvNet(_ImageNetBase):
     """3-conv + 3-fc debugging net (models.py:218-242)."""
@@ -324,15 +352,10 @@ class NvidiaSingleFrameNet(_ImageNetBase):
         n = self._fcs(h * w * c, [(1164, p), (max(100, head), 0.0), (max(50, head), 0.0),
                                   (head, 0.0)])
         self.denses.append(nn.Linear(n, options[LABEL_DIMENSIONS]))
+        self.trunks = (Trunk(range(len(self.conv_blocks)), range(len(self.fc_blocks)), None),)
 
     def forward(self, inputs, generator: torch.Generator = None):
-        x, dt = self._frame(inputs)
-        for block in self.conv_blocks:
-            x = block(x, dt, generator)
-        x = _flatten(x)
-        for block in self.fc_blocks:
-            x = block(x, dt, generator)
-        return self._post(_dense(x, self.denses[0]), inputs)
+        return self._trunks_forward(inputs, generator)
 
 
 class RamboCommaNet(_ImageNetBase):
@@ -421,29 +444,19 @@ class UdacityRamboNet(_ImageNetBase):
         fc = {BATCHNORM: True, ACTIVATION: RELU, DROPOUT: DROPOUT_VANILLA}
         # flax numbers ConvBlock_i, FcBlock_i and Dense_i across the three
         # branches in creation order: all of one branch, then the next.
-        self._spans = []
+        trunks = []
         for convs, fcs in self._BRANCHES:
             c0, f0 = len(self.conv_blocks), len(self.fc_blocks)
             h, w, c = self._convs(convs, input_shape, p, conv)
             n = self._fcs(h * w * c, [(f, p if i == 0 else 0.0) for i, f in enumerate(fcs)], fc)
             self.denses.append(nn.Linear(n, head))
-            self._spans.append((range(c0, len(self.conv_blocks)),
-                                range(f0, len(self.fc_blocks))))
+            trunks.append(Trunk(range(c0, len(self.conv_blocks)),
+                                range(f0, len(self.fc_blocks)), len(self.denses) - 1))
+        self.trunks = tuple(trunks)
         self.denses.append(nn.Linear(3 * head, options[LABEL_DIMENSIONS]))
 
     def forward(self, inputs, generator: torch.Generator = None):
-        frame, dt = self._frame(inputs)
-        heads = []
-        for branch, (convs, fcs) in enumerate(self._spans):
-            x = frame
-            for i in convs:
-                x = self.conv_blocks[i](x, dt, generator)
-            x = _flatten(x)
-            for i in fcs:
-                x = self.fc_blocks[i](x, dt, generator)
-            heads.append(_dense(x, self.denses[branch]))
-        out = _dense(torch.cat(heads, dim=1), self.denses[3])
-        return self._post(out, inputs)
+        return self._trunks_forward(inputs, generator)
 
 
 def make_network(options: Dict[str, Any], linear_bias_inputs=(),

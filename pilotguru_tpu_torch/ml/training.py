@@ -4,9 +4,10 @@ training_helpers.py).
 
 N nets train as one program a batch: their parameters are stacked ``[N,
 ...]`` tensors in the flax tree's names and layouts (``EnsembleState``), so
-checkpoints and ``ml/convert.py`` carry them across to the JAX package. The
-PilotNet trunk runs folded (``ml/folded.py``); other nets run one after
-another through ``torch.func.functional_call`` on the same stacked tensors.
+checkpoints and ``ml/convert.py`` carry them across to the JAX package.
+PilotNet and the Udacity Rambo net run folded (``ml/folded.py``); the other
+nets run one after another through ``torch.func.functional_call`` on the
+same stacked tensors.
 Augmentation runs on the device inside the step (``ml/augmentation.py``).
 
 Semantics kept from the JAX package:
@@ -238,9 +239,11 @@ def per_net_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, to
     """The stacked ensemble one net after another through ``model`` (any
     net of ml/models.py), in train or eval mode; the counterpart of the JAX
     package's vmapped path. Returns (out [N, B, L] float32, new batch_stats
-    stacked like the input)."""
+    stacked like the input). Tallies ``train.per_net_forwards``, one a
+    net."""
     model.train(train)
     n = next(iter(_leaves(params))).shape[0]
+    profiling.count("train.per_net_forwards", n)
     outs, stats = [], []
     for i in range(n):
         stats_i = tree_map(lambda t: t[i].clone(), batch_stats)

@@ -113,9 +113,17 @@ def test_bfloat16_input_follows_the_float32_result(name):
 
 
 @pytest.mark.parametrize("shape", [(1024, 72, 31, 98), (1024, 192, 1, 18), (1024, 3492),
-                                   (1024, 30), (1024, 288, 31, 98), (1024, 13968)])
+                                   (1024, 30), (1024, 288, 31, 98), (1024, 13968),
+                                   # The folded Rambo x3's 17 layers, and its
+                                   # two 5x5/2 first convs' 180 channels merged.
+                                   (1024, 48, 24, 74), (1024, 96, 10, 35), (1024, 192, 3, 16),
+                                   (1024, 72, 48, 148), (1024, 108, 22, 72),
+                                   (1024, 144, 9, 34), (1024, 192, 4, 16), (1024, 192, 1, 7),
+                                   (1024, 108, 48, 148), (1024, 144, 22, 72),
+                                   (1024, 192, 10, 35), (1024, 192, 4, 17), (1024, 1536),
+                                   (1024, 300), (1024, 150), (1024, 180, 48, 148)])
 def test_kernel_mapping_covers_each_channel_once(shape):
-    """The statistics passes' mapping at the folded PilotNet's shapes: tiles
+    """The statistics passes' mapping at the folded nets' shapes: tiles
     of at most 64 vectors covering C, at least 8 rows a thread, about a wave
     of blocks, and no more groups of partitions than the partitions fill."""
     c = shape[1]

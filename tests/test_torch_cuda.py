@@ -527,6 +527,13 @@ BN_SHAPES = {
     "train_conv5": (1024, 192, 1, 18),
     "train_fc1": (1024, 300),
     "search_conv1": (1024, 288, 31, 98),
+    # The folded Rambo x3's: the comma trunk's 8x8/4 conv, the four-conv
+    # trunk's 5x5/2 first conv, its last 3x3/2 conv, and the 50-wide FC
+    # blocks (150 channels, not a multiple of 4).
+    "rambo_comma_conv1": (1024, 48, 24, 74),
+    "rambo_conv_first": (1024, 108, 48, 148),
+    "rambo_conv_last": (1024, 192, 4, 17),
+    "rambo_fc50": (1024, 150),
 }
 
 
@@ -651,6 +658,48 @@ def test_bn_relu_kernels_run_nine_times_a_folded_train_step(cuda):
     assert [(c.launches - n, c.plain_cuda_calls - p)
             for c, (n, p) in zip(counters, before)] == [(9, 0), (9, 0)]
     assert timer.tallies == {"folded.bn_fused": 9}
+
+
+@pytest.mark.cuda
+def test_bn_relu_kernels_run_seventeen_times_a_folded_rambo_train_step(cuda):
+    """One folded Rambo x3 train step at the 100x300 crop (12 conv and 5 FC
+    batch norms): 17 forward and 17 backward launches, 17
+    ``folded.bn_fused`` tallies and no other (no per-net forward), no plain
+    call; the step's losses equal the per-net path's within float32
+    rounding."""
+    from pilotguru_tpu_torch.ml import augmentation, bn_relu_kernel, models, training
+    from pilotguru_tpu_torch.utils import profiling
+
+    options = {"net_name": "rambo", "net_head_dims": 10, "label_dimensions": 1,
+               "dropout_prob": 0.0, "compute_dtype": "float32"}
+    model = models.make_network(options, [{"input_name": "forward_axis", "input_dims": 3}],
+                                (100, 300, 3))
+    settings = training.TrainSettings(epochs=1, batch_size=32,
+                                      augment=augmentation.AugmentSettings(target_width=300))
+    tx = training.make_optimizer("sgd", 1e-3)
+    rng = np.random.default_rng(4)
+    batch = {"frame_img": torch.as_tensor(rng.integers(0, 256, (32, 100, 300, 3),
+                                                       dtype=np.uint8)).to(cuda),
+             "forward_axis": torch.as_tensor(rng.normal(size=(32, 3)).astype(np.float32)).to(cuda)}
+    labels = torch.as_tensor(rng.normal(0, 0.3, (32, 1)).astype(np.float32)).to(cuda)
+    state = training.init_ensemble(model, {}, 3, tx, seed=1, device=cuda)
+    step = training.make_train_step(model, tx, settings)
+    counters = (bn_relu_kernel.COUNTER, bn_relu_kernel.BACKWARD_COUNTER)
+    before = [(c.launches, c.plain_cuda_calls) for c in counters]
+    timer = profiling.StageTimer("step")
+    args = (state, batch, labels, torch.ones((3, 32), device=cuda),
+            torch.ones(3, dtype=torch.bool, device=cuda), torch.Generator(device=cuda))
+    with profiling.recording(timer):
+        _, losses, _ = step(*args)
+    torch.cuda.synchronize()
+    assert [(c.launches - n, c.plain_cuda_calls - p)
+            for c, (n, p) in zip(counters, before)] == [(17, 0), (17, 0)]
+    assert timer.tallies == {"folded.bn_fused": 17}
+    images = batch["frame_img"].float() / 255.0
+    out, _ = training.per_net_forward(model, state.params, state.batch_stats,
+                                      dict(batch, frame_img=images), True)
+    want = training.power_loss(out, labels, 2.0).mean(1)
+    torch.testing.assert_close(losses, want, rtol=1e-4, atol=0)
 
 
 @pytest.mark.cuda
