@@ -21,6 +21,10 @@ Phases (each raises on failure, so the script exits non-zero):
      backward against its plain version over the train-mode batch norms of
      a folded PilotNet x3 step at batch 1,024, in float32 and bfloat16,
      within BN_BARS;
+  5c. the folded convolutions' backward pair (csrc/conv_bwd.cuh, dgrad and
+     wgrad) against its plain version at every conv of a folded PilotNet
+     x3 and x12 step and a Rambo x3 step at batch 1,024, within CONV_BAR of
+     each gradient's norm, and two calls equal to the bit;
   6. the extractor on CUDA against the CPU, with both patch paths, and the
      seed guard (run_seed_guard): the first 20 parallax frames on the card
      in float32 at RANSAC seed 2 through process_frame, reporting the frame
@@ -173,7 +177,11 @@ Phases (each raises on failure, so the script exits non-zero):
      each beside its bound, and beside K1 two floors: an empty kernel on
      its grid and a copy of its bytes; the fused batch norm pair over a
      PilotNet x3 and x12 step's layers beside its bound, the plain version
-     and the op-by-op expression it replaced;
+     and the op-by-op expression it replaced; the conv backward pair at
+     each conv of the three training cells' steps beside its FLOP bound,
+     the plain version and cuDNN's deterministic backward (the yardstick,
+     which the port's float32 training does not call): slower than cuDNN at
+     any layer fails the smoke;
  17. one JSON line with every kernel at the shape the paths give it (all 8
      levels of a 720p frame in one launch): launches
      on the paths (phases 7, 8, 7c, 9, 9b, 12h, 12i and 15b), error against the plain version,
@@ -1078,6 +1086,176 @@ def time_bn_relu_kernel():
               f"{row['replaced_ms']:.4f}; wall ms {row['wall_ms']:.4f}", flush=True)
         del layers, grads
         torch.cuda.empty_cache()
+    return rows
+
+
+# The folded convolutions' backward (csrc/conv_bwd.cuh) at the training
+# cells' shapes: every conv of one folded step of PilotNet x3 (the train
+# cell), x12 (the search cell) and Rambo x3, at batch 1,024.
+CONV_CELLS = (("nvidia", 3), ("nvidia", 12), ("rambo", 3))
+# Each gradient against the plain version, as a share of its norm: the
+# kernels sum in one float32 FMA chain what the plain version sums through
+# cuBLAS; against float64 the kernels read at most 6e-6 of the norm at these
+# layers (tests/test_torch_cuda.py::test_conv_bwd_kernels_match_plain).
+CONV_BAR = 2e-5
+
+
+def conv_bwd_layers(net: str, nets: int, batch: int = BN_BATCH) -> list:
+    """What each folded conv of one x``nets`` float32 train step of ``net``
+    receives, as the path lays it out: (x, kernel, stride, groups) per conv,
+    copied from a step on uint8 frames."""
+    import torch
+
+    from pilotguru_tpu_torch.ml import conv_kernel, models, training
+
+    height, width = (66, 200) if net == "nvidia" else (100, 300)
+    options = {"net_name": net, "net_head_dims": 10, "label_dimensions": 1,
+               "dropout_prob": 0.0, "compute_dtype": "float32"}
+    model = models.make_network(options, [{"input_name": "forward_axis", "input_dims": 3}],
+                                (height, width, 3))
+    state = training.init_ensemble(model, {}, nets, training.make_optimizer("sgd", 1e-3),
+                                   seed=1, device="cuda")
+    rng = np.random.default_rng(6)
+    frames = torch.as_tensor(rng.integers(0, 256, (batch, height, width, 3), dtype=np.uint8))
+    inputs = {"frame_img": frames.cuda().float() / 255.0,
+              "forward_axis": torch.as_tensor(rng.normal(size=(batch, 3)).astype(np.float32)).cuda()}
+    layers, original = [], conv_kernel.folded_conv
+
+    def keep(x, kernel, bias, stride, groups):
+        layers.append((x.detach().clone(memory_format=torch.preserve_format),
+                       kernel.detach().clone(), conv_kernel._square(stride), groups))
+        return original(x, kernel, bias, stride, groups)
+
+    conv_kernel.folded_conv = keep
+    try:
+        with torch.no_grad():
+            training._forward_for(model)(model, state.params, state.batch_stats, inputs, True,
+                                         torch.Generator(device="cuda"))
+    finally:
+        conv_kernel.folded_conv = original
+    torch.cuda.synchronize()
+    return layers
+
+
+def _conv_dy(x, kernel, stride, groups, seed=7):
+    """A unit-normal upstream gradient of the conv's output, channels-last."""
+    import torch
+
+    b, _, h, w = x.shape
+    k = kernel.shape[1]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dy = torch.randn((b, kernel.shape[0] * kernel.shape[4], (h - k) // stride + 1,
+                      (w - k) // stride + 1), generator=gen, device="cuda")
+    return dy.contiguous(memory_format=torch.channels_last)
+
+
+def _conv_pair(x, kernel, dy, stride, groups, plain=False):
+    """(dx or None for a shared input, dW, db) through the kernels or the
+    plain version."""
+    from pilotguru_tpu_torch.ml import conv_kernel as ck
+
+    nets, k, _, cin, cout = kernel.shape
+    dx = None
+    if groups == nets:
+        w = ck._dgrad_weights(kernel)
+        dx = (ck.conv_dgrad_plain(dy, w, x.shape, stride) if plain
+              else ck._dgrad_cuda(dy, w, tuple(x.shape), stride))
+    if plain:
+        b, cy, ho, wo = dy.shape
+        splits = ck.wgrad_mapping(b * ho * wo, groups, cin, cy // groups, k)[-1]
+        return (dx, *ck.conv_wgrad_plain(x, dy, groups, k, stride, cout, splits))
+    return (dx, *ck._wgrad_cuda(x, dy, tuple(kernel.shape), stride, groups))
+
+
+def check_conv_bwd_kernel():
+    """The conv backward pair against its plain version at every conv of the
+    three cells' steps, within CONV_BAR of each gradient's norm, and two
+    calls equal to the bit."""
+    import torch
+
+    worst = {}
+    for net, nets in CONV_CELLS:
+        gaps = {"dx": 0.0, "dw": 0.0, "db": 0.0}
+        for x, kernel, stride, groups in conv_bwd_layers(net, nets):
+            dy = _conv_dy(x, kernel, stride, groups)
+            got = _conv_pair(x, kernel, dy, stride, groups)
+            again = _conv_pair(x, kernel, dy, stride, groups)
+            want = _conv_pair(x, kernel, dy, stride, groups, plain=True)
+            torch.cuda.synchronize()
+            for key, a, a2, b in zip(("dx", "dw", "db"), got, again, want):
+                if b is None:
+                    continue
+                if not torch.equal(a, a2):
+                    raise AssertionError(f"conv backward {key}: two calls differ ({net} x{nets}, "
+                                         f"{tuple(x.shape)})")
+                gaps[key] = max(gaps[key], float((a - b).norm() / b.norm()))
+            del x, kernel, dy, got, again, want
+        torch.cuda.empty_cache()
+        worst[f"{net}_x{nets}"] = gaps
+        print(f"conv backward ({net} x{nets}, every conv of a step at batch {BN_BATCH}): "
+              f"largest gaps from the plain version, of the norm, {json.dumps(gaps)}; "
+              "two calls equal to the bit", flush=True)
+        if max(gaps.values()) > CONV_BAR:
+            raise AssertionError(f"conv backward {net} x{nets}: over CONV_BAR {gaps}")
+    return worst
+
+
+def time_conv_bwd_kernel():
+    """Device ms of the conv backward pair at each conv of the three cells'
+    steps, beside its bound (the FMAs at the FP32 peak: wgrad every conv,
+    dgrad but a trunk's first), the plain version and cuDNN's deterministic
+    backward of the same conv (``aten.convolution_backward``, as autograd
+    calls it: the input's, the weight's and the bias's gradients, TF32 off),
+    which the port's float32 training no longer calls. Raises where the
+    pair is slower than cuDNN at any layer, by CUDA events (the profiler now
+    and then records none of a call's kernels, and its device ms then reads
+    0)."""
+    import torch
+
+    from pilotguru_tpu_torch.ml import conv_kernel as ck
+
+    rows = []
+    for net, nets in CONV_CELLS:
+        cell = {"net": net, "nets": nets, "layers": []}
+        for x, kernel, stride, groups in conv_bwd_layers(net, nets):
+            dy = _conv_dy(x, kernel, stride, groups)
+            n, k, _, cin, cout = kernel.shape
+            ho, wo = dy.shape[2:]
+            shared = groups != n
+            macs = x.shape[0] * ho * wo * n * cout * cin * k * k
+            weight = ck.fold_conv_kernel(kernel)
+
+            def cudnn():
+                torch.ops.aten.convolution_backward(
+                    dy, x, weight, [n * cout], [stride, stride], [0, 0], [1, 1], False, [0, 0],
+                    groups, [not shared, True, True])
+
+            row = {"shape": f"{tuple(x.shape)} {k}x{k}/{stride} groups {groups} -> "
+                            f"{n * cout} channels", **bound(0, 2 * macs * (1 if shared else 2))}
+            row["ms"], row["wall_ms"] = time_ms(
+                lambda: _conv_pair(x, kernel, dy, stride, groups), reps=10)
+            row["plain_ms"], _ = time_ms(
+                lambda: _conv_pair(x, kernel, dy, stride, groups, plain=True), reps=1)
+            with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True,
+                                            allow_tf32=False):
+                row["library_ms"], row["library_wall_ms"] = time_ms(cudnn, reps=10)
+            cell["layers"].append(row)
+            print(f"conv backward {net} x{nets} {row['shape']}: device ms {row['ms']:.4f}, bound "
+                  f"{row['bound_ms']:.4f} ({row['operations'] / 1e9:.1f} GFLOP), plain "
+                  f"{row['plain_ms']:.4f}, cuDNN deterministic {row['library_ms']:.4f}; wall ms "
+                  f"{row['wall_ms']:.4f}, cuDNN {row['library_wall_ms']:.4f}", flush=True)
+            del x, kernel, dy, weight
+        torch.cuda.empty_cache()
+        for key in ("ms", "bound_ms", "plain_ms", "library_ms"):
+            cell[key] = sum(r[key] for r in cell["layers"])
+        print(f"conv backward, the {len(cell['layers'])} convs of a {net} x{nets} step: device ms "
+              f"{cell['ms']:.4f}, bound {cell['bound_ms']:.4f}, plain {cell['plain_ms']:.4f}, "
+              f"cuDNN deterministic {cell['library_ms']:.4f}", flush=True)
+        rows.append(cell)
+    slower = [(c["net"], c["nets"], r["shape"]) for c in rows for r in c["layers"]
+              if r["wall_ms"] > r["library_wall_ms"]]
+    if slower:
+        raise AssertionError(f"conv backward pair slower than cuDNN at {slower}")
     return rows
 
 
@@ -4272,7 +4450,7 @@ def main() -> int:
         return 2
     import pilotguru_tpu_torch  # noqa: F401  (precision policy)
     from pilotguru_tpu_torch import cuda_lib
-    from pilotguru_tpu_torch.ml import bn_relu_kernel
+    from pilotguru_tpu_torch.ml import bn_relu_kernel, conv_kernel
 
     started = time.perf_counter()
 
@@ -4303,6 +4481,7 @@ def main() -> int:
     k2 = check_patch_kernel(rng)
     k3 = check_blur_patch_kernel(rng)
     bn = check_bn_relu_kernel()
+    conv = check_conv_bwd_kernel()
 
     t0 = time.perf_counter()
     ride = list(render_ride())
@@ -4383,9 +4562,12 @@ def main() -> int:
         mark("the forward pass's and the train step's timings")
         forward_timings(frame_rows["inputs"]["checkpoints"])
         bn_before = bn_relu_kernel.COUNTER.launches + bn_relu_kernel.BACKWARD_COUNTER.launches
+        conv_before = conv_kernel.COUNTER.launches + conv_kernel.BACKWARD_COUNTER.launches
         train_throughput()
         bn_launches = (bn_relu_kernel.COUNTER.launches
                        + bn_relu_kernel.BACKWARD_COUNTER.launches - bn_before)
+        conv_launches = (conv_kernel.COUNTER.launches
+                         + conv_kernel.BACKWARD_COUNTER.launches - conv_before)
         mark("the kernel timings")
     finally:
         for lane in lanes:
@@ -4399,6 +4581,7 @@ def main() -> int:
     (k1, k1_levels), (k2, k2_levels) = time_fast_kernel(k1, loop_ride[0]), time_patch_kernel(k2)
     k3, k3_levels = time_blur_patch_kernel(k3)
     bn_rows = time_bn_relu_kernel()
+    conv_rows = time_conv_bwd_kernel()
     torch.cuda.synchronize()
 
     def entry(name, source, replaces, shape, row, one_level=None):
@@ -4444,6 +4627,15 @@ def main() -> int:
              "ms", "plain_ms", "bound_ms", "bound_by", "design_ms", "replaced_ms")},
          "x12": {k: bn_rows[1][k] for k in (
              "ms", "plain_ms", "bound_ms", "design_ms", "replaced_ms")}},
+        {"name": "conv_bwd", "route": "cuda", "source": "pilotguru_tpu_torch/csrc/conv_bwd.cuh",
+         "replaces": None,  # no TPU kernel: XLA differentiates the JAX package's convolutions
+         "launches": conv_launches, "launches_by_path": {"train_throughput": conv_launches},
+         "shape": f"the convs of a PilotNet x{CONV_CELLS[0][1]} step at batch {BN_BATCH}, dgrad "
+                  "and wgrad",
+         "max_abs_err": conv,
+         **{k: conv_rows[0][k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+         "by_cell": [{k: c[k] for k in ("net", "nets", "ms", "plain_ms", "bound_ms", "library_ms")}
+                     for c in conv_rows]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -89,6 +89,18 @@ class BnArgs(ctypes.Structure):
     ]
 
 
+class ConvArgs(ctypes.Structure):
+    """PgConv of csrc/conv_bwd.cuh: one call's tensors and sizes."""
+
+    _fields_ = [
+        ("x", _VOIDP), ("dy", _VOIDP), ("w", _VOIDP), ("dx", _VOIDP), ("partial", _VOIDP),
+        ("dw", _VOIDP), ("db", _VOIDP),
+        *((name, _INT) for name in ("batch", "hin", "win", "hout", "wout", "ksize", "stride",
+                                    "groups", "cin", "m", "cout", "tile", "long_threads",
+                                    "splits", "chunk", "rows", "cols")),
+    ]
+
+
 _FLOATP = ctypes.POINTER(ctypes.c_float)
 # C signature of each entry point: (argtypes, restype).
 _SIGNATURES = {
@@ -103,6 +115,9 @@ _SIGNATURES = {
     # args, stream
     **{f"pg_bn_relu_{way}_{dtype}": ([ctypes.POINTER(BnArgs), _VOIDP], _INT)
        for way in ("forward", "backward") for dtype in ("f32", "bf16")},
+    # args, stream
+    **{f"pg_conv_{way}_f32": ([ctypes.POINTER(ConvArgs), _VOIDP], _INT)
+       for way in ("dgrad", "wgrad")},
 }
 
 

@@ -17,7 +17,10 @@ net's math is unchanged; the ensemble axis rides in the channels:
   cast to the compute dtype and the ReLU run as one hand-written kernel
   pair (ml/bn_relu_kernel.py), on the CPU as PyTorch ops (``_bn_train``);
 - the dense layers are batched per-net products (``einsum`` over the net
-  axis, a cuBLAS batched GEMM).
+  axis, a cuBLAS batched GEMM);
+- in train mode on the card in float32, each conv's backward (the input's,
+  the weights' and the bias's gradients) is a hand-written kernel pair
+  (ml/conv_kernel.py), its forward cuDNN's convolution as elsewhere.
 
 Strides, dropout rates and whether a block has batch norm are read off the
 model's blocks; kernel sizes and channel counts off the parameter shapes.
@@ -25,8 +28,9 @@ The parameters stay in the stacked per-net layout of the training state
 (``[N, ...]`` leaves in the flax tree's names and layouts: HWIO conv
 kernels, (in, out) dense kernels); the fold is a reshape inside the
 forward, so gradients reach the per-net leaves. The trunks run NCHW, and
-each net's flatten keeps the flax (h, w, c) order. The convolutions and
-products are cuDNN's and cuBLAS's, as the JAX package leaves them to XLA.
+each net's flatten keeps the flax (h, w, c) order. The convolutions (but
+the float32 train-mode backward on the card) and products are cuDNN's and
+cuBLAS's, as the JAX package leaves them to XLA.
 
 Dropout masks are drawn from the given generator over the folded channels,
 one for each block with a dropout rate, all before the forward runs, in
@@ -44,7 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from pilotguru_tpu_torch.ml import bn_relu_kernel
+from pilotguru_tpu_torch.ml import bn_relu_kernel, conv_kernel
 from pilotguru_tpu_torch.ml import models as models_lib
 from pilotguru_tpu_torch.utils import profiling
 
@@ -58,11 +62,12 @@ def foldable(model) -> bool:
     return isinstance(model, (models_lib.NvidiaSingleFrameNet, models_lib.UdacityRamboNet))
 
 
-def fold_conv_kernel(k: torch.Tensor) -> torch.Tensor:
-    """[N, kh, kw, cin, cout] (stacked HWIO) -> [N * cout, cin, kh, kw]
-    (OIHW, group-major)."""
-    n, kh, kw, cin, cout = k.shape
-    return k.permute(0, 4, 3, 1, 2).reshape(n * cout, cin, kh, kw)
+def hand_conv_backward(x: torch.Tensor, train: bool) -> bool:
+    """Whether a trunk's conv of x takes ml/conv_kernel.py's backward: in
+    train mode on a CUDA float32 tensor. bfloat16 keeps cuDNN, whose tensor
+    cores an FMA design would lose to; the CPU keeps ``F.conv2d`` and
+    autograd."""
+    return train and x.is_cuda and x.dtype == torch.float32
 
 
 def _wide(x):
@@ -212,8 +217,13 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
             # The trunk's first conv: every net reads the same image, a
             # plain conv with the kernels concatenated; later convs:
             # block-diagonal groups.
-            x = F.conv2d(x, fold_conv_kernel(k).to(dtype), b.reshape(-1).to(dtype),
-                         stride=block.layer.stride, groups=1 if pos == 0 else n)
+            groups = 1 if pos == 0 else n
+            if hand_conv_backward(x, train):
+                profiling.count("folded.conv_bwd_hand")
+                x = conv_kernel.folded_conv(x, k, b, block.layer.stride, groups)
+            else:
+                x = F.conv2d(x, conv_kernel.fold_conv_kernel(k).to(dtype),
+                             b.reshape(-1).to(dtype), stride=block.layer.stride, groups=groups)
             x = bn_relu(x, name, (0, 2, 3), (1, -1, 1, 1)) if block.bn is not None else F.relu(x)
             if name in masks:
                 x = x * masks[name]  # DROPOUT_2D: whole channels

@@ -29,6 +29,8 @@ Repeatability: the training loop runs with cuDNN's deterministic
 algorithms (``_deterministic_cudnn``). Its default backward-filter
 algorithms may add with atomics, in whatever order the threads arrive, and
 this training amplifies rounding, so a run on the card would not repeat.
+The folded path's float32 conv backward on the card is hand-written
+(ml/conv_kernel.py) and sums in an order fixed by the shape.
 
 Randomness: the host's ``np.random.default_rng(seed)`` draws each epoch's
 permutation and each batch's skip mask in the JAX package's order, so the

@@ -629,8 +629,8 @@ def test_bn_relu_kernel_repeats_to_the_bit(cuda, name):
 @pytest.mark.cuda
 def test_bn_relu_kernels_run_nine_times_a_folded_train_step(cuda):
     """One folded PilotNet x3 train step (5 conv and 4 FC batch norms): 9
-    forward and 9 backward launches, 9 ``folded.bn_fused`` tallies and no
-    other, no plain call."""
+    forward and 9 backward launches, 9 ``folded.bn_fused`` tallies (beside
+    the 5 convs' ``folded.conv_bwd_hand``), no plain call."""
     from pilotguru_tpu_torch.ml import augmentation, bn_relu_kernel, models, training
     from pilotguru_tpu_torch.utils import profiling
 
@@ -657,16 +657,16 @@ def test_bn_relu_kernels_run_nine_times_a_folded_train_step(cuda):
     torch.cuda.synchronize()
     assert [(c.launches - n, c.plain_cuda_calls - p)
             for c, (n, p) in zip(counters, before)] == [(9, 0), (9, 0)]
-    assert timer.tallies == {"folded.bn_fused": 9}
+    assert timer.tallies == {"folded.bn_fused": 9, "folded.conv_bwd_hand": 5}
 
 
 @pytest.mark.cuda
 def test_bn_relu_kernels_run_seventeen_times_a_folded_rambo_train_step(cuda):
     """One folded Rambo x3 train step at the 100x300 crop (12 conv and 5 FC
     batch norms): 17 forward and 17 backward launches, 17
-    ``folded.bn_fused`` tallies and no other (no per-net forward), no plain
-    call; the step's losses equal the per-net path's within float32
-    rounding."""
+    ``folded.bn_fused`` tallies (beside the 12 convs' ``folded.conv_bwd_hand``
+    and no per-net forward), no plain call; the step's losses equal the
+    per-net path's within float32 rounding."""
     from pilotguru_tpu_torch.ml import augmentation, bn_relu_kernel, models, training
     from pilotguru_tpu_torch.utils import profiling
 
@@ -694,7 +694,7 @@ def test_bn_relu_kernels_run_seventeen_times_a_folded_rambo_train_step(cuda):
     torch.cuda.synchronize()
     assert [(c.launches - n, c.plain_cuda_calls - p)
             for c, (n, p) in zip(counters, before)] == [(17, 0), (17, 0)]
-    assert timer.tallies == {"folded.bn_fused": 17}
+    assert timer.tallies == {"folded.bn_fused": 17, "folded.conv_bwd_hand": 12}
     images = batch["frame_img"].float() / 255.0
     out, _ = training.per_net_forward(model, state.params, state.batch_stats,
                                       dict(batch, frame_img=images), True)
@@ -751,3 +751,156 @@ def test_folded_train_step_repeats_to_the_bit_on_the_card(cuda):
     assert len(runs[0]) == len(runs[1]) > 2
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# ------------------------------------------- the folded convs' backward
+# The cells' largest layers, and one of each other kernel instance: (input
+# channels a net, output channels a net, kernel, stride, input height,
+# width, nets, shared input) at batch 1,024.
+CONV_SHAPES = {
+    "train_conv2": (24, 36, 5, 2, 31, 98, 3, False),
+    "search_conv2": (24, 36, 5, 2, 31, 98, 12, False),
+    "rambo_four2": (36, 48, 5, 2, 48, 148, 3, False),
+    "rambo_four1": (3, 36, 5, 2, 100, 300, 3, True),
+    "rambo_comma1": (3, 16, 8, 4, 100, 300, 3, True),
+    "train_conv4": (48, 64, 3, 1, 5, 22, 3, False),
+    "rambo_four3": (48, 64, 3, 2, 22, 72, 3, False),
+}
+
+
+def _conv_case(device, name, batch=1024, seed=0):
+    """(x, kernel, dy, stride, groups): x and dy channels-last."""
+    cin, cout, k, stride, h, w, nets, shared = CONV_SHAPES[name]
+    groups = 1 if shared else nets
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((batch, cin * groups, h, w), generator=gen, device=device)
+    kernel = torch.randn((nets, k, k, cin, cout), generator=gen, device=device) / k / cin**0.5
+    dy = torch.randn((batch, nets * cout, (h - k) // stride + 1, (w - k) // stride + 1),
+                     generator=gen, device=device)
+    return (x.contiguous(memory_format=torch.channels_last), kernel,
+            dy.contiguous(memory_format=torch.channels_last), stride, groups)
+
+
+def _conv_grads(x, kernel, dy, stride, groups, plain):
+    """(dx or None, dW, db) through the kernels or their plain version."""
+    from pilotguru_tpu_torch.ml import conv_kernel as ck
+
+    nets, k, _, cin, cout = kernel.shape
+    dx = None
+    if groups == nets:
+        w = ck._dgrad_weights(kernel)
+        dx = (ck.conv_dgrad_plain(dy, w, x.shape, stride) if plain
+              else ck._dgrad_cuda(dy, w, tuple(x.shape), stride))
+    if plain:
+        b, cy, ho, wo = dy.shape
+        splits = ck.wgrad_mapping(b * ho * wo, groups, cin, cy // groups, k)[-1]
+        dw, db = ck.conv_wgrad_plain(x, dy, groups, k, stride, cout, splits)
+    else:
+        dw, db = ck._wgrad_cuda(x, dy, tuple(kernel.shape), stride, groups)
+    torch.cuda.synchronize()
+    return dx, dw, db
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(CONV_SHAPES))
+def test_conv_bwd_kernels_match_plain(cuda, name):
+    """dx, dW and db against the plain version (cuBLAS products in full
+    float32, summed tap by tap and partition by partition as the kernels
+    sum): each within float32 rounding of its norm. The kernels add up to
+    1,350 products a dx element and 400,000 a partition of dW in one FMA
+    chain; against float64 they read at most 6e-6 of the norm at these
+    layers (cuDNN's float32 backward about 1e-6), so the bar is 2e-5."""
+    got = _conv_grads(*_conv_case(cuda, name), plain=False)
+    want = _conv_grads(*_conv_case(cuda, name), plain=True)
+    for label, a, b in zip(("dx", "dW", "db"), got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.shape == b.shape and a.stride() == b.stride(), label
+        assert float((a - b).norm() / b.norm()) <= 2e-5, label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["rambo_four2", "search_conv2", "rambo_comma1"])
+def test_conv_bwd_kernels_repeat_to_the_bit(cuda, name):
+    case = _conv_case(cuda, name)
+    first, second = (_conv_grads(*case, plain=False) for _ in range(2))
+    for a, b in zip(first, second):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float64])
+def test_conv_bwd_kernels_refuse_other_dtypes(cuda, dtype):
+    from pilotguru_tpu_torch.ml import conv_kernel as ck
+
+    x, kernel, dy, stride, groups = _conv_case(cuda, "train_conv4", batch=8)
+    with pytest.raises(ValueError, match="float32"):
+        ck._wgrad_cuda(x.to(dtype), dy.to(dtype), tuple(kernel.shape), stride, groups)
+
+
+def _folded_step(cuda, net, hand, monkeypatch, batch=256):
+    """One folded x3 float32 SGD step on the card, its convs' backward
+    through the kernels (``hand``) or cuDNN's deterministic algorithms:
+    (losses, each leaf's gradient, the tallies, the conv launches)."""
+    from pilotguru_tpu_torch.ml import augmentation, conv_kernel, folded, models, training
+    from pilotguru_tpu_torch.utils import profiling
+
+    if not hand:
+        monkeypatch.setattr(folded, "hand_conv_backward", lambda x, train: False)
+    height, width = (66, 200) if net == "nvidia" else (100, 300)
+    options = {"net_name": net, "net_head_dims": 10, "label_dimensions": 1,
+               "dropout_prob": 0.0, "compute_dtype": "float32"}
+    model = models.make_network(options, [{"input_name": "forward_axis", "input_dims": 3}],
+                                (height, width, 3))
+    tx = training.make_optimizer("sgd", 1e-3)
+    state = training.init_ensemble(model, {}, 3, tx, seed=1, device=cuda)
+    settings = training.TrainSettings(epochs=1, batch_size=batch,
+                                      augment=augmentation.AugmentSettings(target_width=width))
+    rng = np.random.default_rng(4)
+    batch_in = {"frame_img": torch.as_tensor(rng.integers(0, 256, (batch, height, width, 3),
+                                                          dtype=np.uint8)).to(cuda),
+                "forward_axis": torch.as_tensor(rng.normal(size=(batch, 3)).astype(np.float32)
+                                                ).to(cuda)}
+    labels = torch.as_tensor(rng.normal(0, 0.3, (batch, 1)).astype(np.float32)).to(cuda)
+    counters = (conv_kernel.COUNTER, conv_kernel.BACKWARD_COUNTER)
+    before = [(c.launches, c.plain_cuda_calls) for c in counters]
+    timer = profiling.StageTimer("step")
+    with profiling.recording(timer), training._deterministic_cudnn():
+        new, losses, _ = training.make_train_step(model, tx, settings)(
+            state, batch_in, labels, torch.ones((3, batch), device=cuda),
+            torch.ones(3, dtype=torch.bool, device=cuda), torch.Generator(device=cuda))
+    torch.cuda.synchronize()
+    launches = [(c.launches - n, c.plain_cuda_calls - p) for c, (n, p) in zip(counters, before)]
+
+    def leaves(tree, prefix=""):
+        return {k2: v2 for k, t in tree.items()
+                for k2, v2 in (leaves(t, f"{prefix}{k}/") if isinstance(t, dict)
+                               else {prefix + k: t}).items()}
+
+    old, now = leaves(state.params), leaves(new.params)
+    return losses, {k: (old[k] - now[k]) / 1e-3 for k in old}, dict(timer.tallies), launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net,dgrads,convs", [("nvidia", 4, 5), ("rambo", 9, 12)])
+def test_folded_step_through_the_conv_kernels_follows_cudnn(cuda, net, dgrads, convs,
+                                                            monkeypatch):
+    """A folded x3 float32 train step launches dgrad once a grouped conv
+    and wgrad once a conv (4 and 5 for PilotNet, 9 and 12 for Rambo; the
+    trunks' first convs take no dgrad), tallies ``folded.conv_bwd_hand``
+    once a conv, and its gradients follow the cuDNN path's within the
+    cells' first-gradient limit (0.008 of the leaf's norm or the median
+    leaf's, per net)."""
+    losses, grads, tallies, launches = _folded_step(cuda, net, True, monkeypatch)
+    assert launches == [(dgrads, 0), (convs, 0)]
+    assert tallies.get("folded.conv_bwd_hand") == convs
+    want_losses, want, want_tallies, _ = _folded_step(cuda, net, False, monkeypatch)
+    assert "folded.conv_bwd_hand" not in want_tallies
+    torch.testing.assert_close(losses, want_losses, rtol=0, atol=0)
+    norms = {(k, n): float(g[n].double().norm()) for k, g in want.items()
+             for n in range(g.shape[0])}
+    median = float(np.median(list(norms.values())))
+    for (k, n), norm in norms.items():
+        gap = abs(float(grads[k][n].double().norm()) - norm) / max(norm, median)
+        assert gap <= 0.008, (k, n, gap)
