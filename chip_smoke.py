@@ -1037,13 +1037,12 @@ def time_bn_relu_kernel():
     backward), for PilotNet x3 and x12 at batch 1,024 in float32, beside the
     bound (each input byte read once, each output written once, at the
     memory rate), the two-pass design's own traffic, the plain version and
-    the op-by-op PyTorch expression it replaced (``_bn_train``, the cast and
-    the ReLU through autograd)."""
+    the op-by-op PyTorch expression it replaced (``bn_train_ops``, the cast
+    and the ReLU through autograd)."""
     import torch
     import torch.nn.functional as F
 
     from pilotguru_tpu_torch.ml import bn_relu_kernel as bk
-    from pilotguru_tpu_torch.ml import folded
 
     rows = []
     for nets in BN_NETS:
@@ -1063,8 +1062,7 @@ def time_bn_relu_kernel():
         def replaced():
             for (x, scale, bias, mean_ra, var_ra), g in zip(layers, grads):
                 xr, sr, br = (t.detach().requires_grad_(True) for t in (x, scale, bias))
-                axes, shape = ((0, 2, 3), (1, -1, 1, 1)) if x.dim() == 4 else ((0,), (1, -1))
-                y, _, _ = folded._bn_train(xr, axes, sr, br, mean_ra, var_ra, shape)
+                y, _, _ = bk.bn_train_ops(xr, sr, br, mean_ra, var_ra, 1e-5, 0.9)
                 F.relu(y.to(x.dtype)).backward(g)
 
         activation = sum(x.numel() * x.element_size() for x, *_ in layers)
@@ -4451,6 +4449,7 @@ def main() -> int:
     import pilotguru_tpu_torch  # noqa: F401  (precision policy)
     from pilotguru_tpu_torch import cuda_lib
     from pilotguru_tpu_torch.ml import bn_relu_kernel, conv_kernel
+    from pilotguru_tpu_torch.vo import fast_kernel, patch_kernel
 
     started = time.perf_counter()
 
@@ -4468,7 +4467,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     build = cuda_lib.build()
-    cuda_lib.library()
+    for module in (fast_kernel, patch_kernel, bn_relu_kernel, conv_kernel):
+        for stem in module.SIGNATURES:
+            module.library(stem)
     print(f"built {', '.join(p.name for p in build.paths)} in {build.seconds:.2f} s",
           flush=True)
     if build.log.strip():

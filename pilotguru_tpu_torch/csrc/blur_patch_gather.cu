@@ -54,16 +54,6 @@
 
 #include <cuda_runtime.h>
 
-#ifndef PG_BLUR_RUN_V
-#define PG_BLUR_RUN_V 20  // output rows per thread, vertical pass
-#endif
-#ifndef PG_BLUR_RUN_H
-#define PG_BLUR_RUN_H 13  // output columns per thread, horizontal pass
-#endif
-#ifndef PG_BLUR_THREADS
-#define PG_BLUR_THREADS 128
-#endif
-
 namespace {
 
 constexpr int kRadius = 19;
@@ -71,9 +61,9 @@ constexpr int kBlur = 8;
 constexpr int kSize = 2 * kRadius + 1;   // 39: patch side
 constexpr int kTaps = 2 * kBlur + 1;     // 17
 constexpr int kWin = kSize + 2 * kBlur;  // 55: raw window side
-constexpr int kRunV = PG_BLUR_RUN_V;
-constexpr int kRunH = PG_BLUR_RUN_H;
-constexpr int kThreads = PG_BLUR_THREADS;
+constexpr int kRunV = 20;  // output rows per thread, vertical pass
+constexpr int kRunH = 13;  // output columns per thread, horizontal pass
+constexpr int kThreads = 128;
 constexpr int kRunsV = (kSize + kRunV - 1) / kRunV;
 constexpr int kRunsH = (kSize + kRunH - 1) / kRunH;
 constexpr int kMaxLevels = 8;

@@ -10,7 +10,7 @@
 //   nms = raw where raw >= max(3x3 neighbourhood of raw), else 0 (ties keep
 //         the pixel).
 //
-// What bounds it on an H100 (80GB HBM3, 700 W; kernel_variants.py): a fixed
+// What bounds it on an H100 (80GB HBM3, 700 W; probe builds): a fixed
 // chain and instruction issue, not bytes. A pixel moves 12 bytes, for which
 // the card's memory rate allows 3.3 us at 720x1280 (a plain copy of those
 // bytes on the same grid takes 3.3 us, an empty kernel 1.4 us). Loading the
@@ -55,33 +55,13 @@
 
 #include <cuda_runtime.h>
 
-#ifndef PG_FAST_COMPASS
-// 1: test the four compass taps (0, 4, 8, 12) before the other twelve. Any
-// 9-arc holds at least two of them, so a pixel with fewer than two brighter
-// and fewer than two darker compass taps scores 0. A warp skips the twelve
-// only where all its 32 pixels fail the test: on a video frame that saves a
-// tenth of the time, on noise it costs a twentieth (kernel_variants.py).
-#define PG_FAST_COMPASS 1
-#endif
-
-#ifndef PG_FAST_PROBE
-// For measurement only (kernel_variants.py), wrong results: 1 marks no
-// corner without looking (what loading, NMS and storing cost alone); 2
-// builds the masks but skips the arc test and the responses.
-#define PG_FAST_PROBE 0
-#endif
-
-#ifndef PG_FAST_ROWS
-#define PG_FAST_ROWS 8  // the block is 32 x PG_FAST_ROWS threads (>= 5)
-#endif
-
 namespace {
 
 constexpr int kTile = 32;
 constexpr int kHalo = 4;
 constexpr int kIn = kTile + 2 * kHalo;  // 40: shared image tile side
 constexpr int kScore = kTile + 2;       // 34: response tile side (1-px ring)
-constexpr int kRows = PG_FAST_ROWS;
+constexpr int kRows = 8;  // the block is 32 x kRows threads (>= 5)
 static_assert(kRows >= 5 && kTile % kRows == 0, "32 x kRows threads tile the 32 rows");
 constexpr int kMaxLevels = 8;
 
@@ -143,19 +123,19 @@ __device__ __forceinline__ void add_tap(const float* __restrict__ c, float cente
 // Whether the pixel whose shared-memory cell is c has a 9-arc of brighter or
 // of darker taps.
 __device__ __forceinline__ bool fast_is_corner(const float* __restrict__ c, float thr) {
-#if PG_FAST_PROBE == 1
-  return false;
-#endif
   const float center = c[0];
   unsigned over = 0u, neg = 0u;
-#if PG_FAST_COMPASS
+  // The four compass taps (0, 4, 8, 12) before the other twelve. Any 9-arc
+  // holds at least two of them, so a pixel with fewer than two brighter and
+  // fewer than two darker compass taps scores 0. A warp skips the twelve
+  // only where all its 32 pixels fail the test: on a video frame that saves
+  // a tenth of the time, on noise it costs a twentieth.
   tap<0>(c, center, thr, over, neg);
   tap<4>(c, center, thr, over, neg);
   tap<8>(c, center, thr, over, neg);
   tap<12>(c, center, thr, over, neg);
   if (__popc(over & ~neg) < 2 && __popc(over & neg) < 2) return false;
   over = neg = 0u;
-#endif
   tap<0>(c, center, thr, over, neg);
   tap<1>(c, center, thr, over, neg);
   tap<2>(c, center, thr, over, neg);
@@ -172,9 +152,6 @@ __device__ __forceinline__ bool fast_is_corner(const float* __restrict__ c, floa
   tap<13>(c, center, thr, over, neg);
   tap<14>(c, center, thr, over, neg);
   tap<15>(c, center, thr, over, neg);
-#if PG_FAST_PROBE == 2
-  return (over & neg) == 0xFFFFFFFFu;  // never: the masks have 16 bits
-#endif
   return has_arc(over & ~neg) || has_arc(over & neg);
 }
 

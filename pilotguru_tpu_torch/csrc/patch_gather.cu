@@ -18,15 +18,15 @@
 // What bounds it on an H100: bytes. It does no arithmetic; a frame's 2000
 // keypoints write 12.2 MB of patches and read the distinct pixels their
 // windows cover (most of each level, from L2 right after the blur wrote
-// it), about 6 us at 3.35 TB/s. Measured (H100 80GB HBM3, 700 W;
-// kernel_variants.py, 4 keypoints and 512 threads a block): 7.3 us for
+// it), about 6 us at 3.35 TB/s. Measured (H100 80GB HBM3, 700 W; 4
+// keypoints and 512 threads a block): 7.3 us for
 // 2288 keypoints over 8 levels in one launch (a frame's 2000 plus border
 // and corner keypoints) and 2.9 us for 434 on one level (bound 1.3 us),
 // where a build with 256 threads and without the loads takes 1.9 us. The
 // first design (one block of 32x8 threads per keypoint, a warp per patch
 // row, 4-byte stores, the second pass over a row with 7 of 32 lanes busy,
 // a launch per level) reached 35% of its bound. This one:
-//   * Several keypoints a block (PG_PATCH_KEYPOINTS). The block writes
+//   * Several keypoints a block (kKeypoints). The block writes
 //     their patches as one flat run of floats: every lane of every warp
 //     stores to consecutive addresses, whatever the row boundaries. 1521
 //     floats a patch is odd, but 4 patches are 6084 bytes, a multiple of
@@ -49,25 +49,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#ifndef PG_PATCH_KEYPOINTS
-#define PG_PATCH_KEYPOINTS 4  // keypoints per block
-#endif
-#ifndef PG_PATCH_THREADS
-#define PG_PATCH_THREADS 512
-#endif
-// Probe builds for kernel_variants.py (wrong results): 1 stores a constant
-// instead of loading, which leaves the stores and the index walk alone.
-#ifndef PG_PATCH_PROBE
-#define PG_PATCH_PROBE 0
-#endif
-
 namespace {
 
 constexpr int kRadius = 19;
 constexpr int kSize = 2 * kRadius + 1;  // 39: patch side
 constexpr int kPatch = kSize * kSize;   // 1521 floats a patch
-constexpr int kKeypoints = PG_PATCH_KEYPOINTS;
-constexpr int kThreads = PG_PATCH_THREADS;
+constexpr int kKeypoints = 4;  // keypoints per block
+constexpr int kThreads = 512;
 constexpr int kMaxLevels = 8;
 
 static_assert(kKeypoints <= kThreads, "one thread reads each keypoint of a block");
@@ -91,7 +79,6 @@ struct Window {
 };
 
 __device__ __forceinline__ float fetch(const Window& win, int i, int j) {
-  if (PG_PATCH_PROBE == 1) return static_cast<float>(i + j);
   const int row = min(max(win.y0 + i, 0), win.h - 1);
   const int col = min(max(win.x0 + j, 0), win.w - 1);
   return __ldg(win.img + (size_t)row * win.w + col);

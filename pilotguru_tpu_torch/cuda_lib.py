@@ -1,33 +1,35 @@
 """Build and load the hand-written CUDA kernels of the port.
 
 Every ``*.cu`` file under ``csrc/`` (with the ``*.cuh`` headers there) is
-compiled by its own ``nvcc`` process
-for Hopper (``sm_90a``), all started together, into a shared library with a
-plain C interface, loaded with ``ctypes``; ``library(stem)`` builds and loads
-one source alone (the training path's, so that it does not wait for the VO
-kernels' builds). The build happens at first use,
-from the sources in the checkout only, into ``pilotguru_tpu_torch/build/``
-(git-ignored); each library's file name carries a digest of its source, the
-headers and the flags, so an edited kernel is rebuilt and a stale library
-is never loaded.
+compiled by its own ``nvcc`` process for Hopper (``sm_90a``) into a shared
+library with a plain C interface, loaded with ``ctypes``. ``build()``
+compiles every source at once; ``library(stem, signatures)`` builds and
+loads one source alone, at the first launch of its kernels, so a path waits
+for no other path's build. The builds read the sources in the checkout only
+and write ``pilotguru_tpu_torch/build/`` (git-ignored); each library's file
+name carries a digest of its source, the headers and the flags, so an
+edited kernel is rebuilt and a stale library is never loaded.
 
-Each C entry point takes raw device pointers, the sizes and the CUDA stream,
-launches on that stream without synchronising, and returns
-``cudaGetLastError()``; ``check_launch`` turns a non-zero value into an
-exception.
+This module knows no kernel. Each wrapper module (``vo/fast_kernel.py``,
+``vo/patch_kernel.py``, ``ml/bn_relu_kernel.py``, ``ml/conv_kernel.py``)
+holds its sources' ctypes structs and entry-point signatures and decides
+when its kernels run. Each C entry point takes raw device pointers, the
+sizes and the CUDA stream, launches on that stream without synchronising,
+and returns ``cudaGetLastError()``; ``check_launch`` turns a non-zero value
+into an exception.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+import types
 from pathlib import Path
 
 _PACKAGE = Path(__file__).resolve().parent
@@ -39,86 +41,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-
-_VOIDP = ctypes.c_void_p
-_INT = ctypes.c_int
-MAX_LEVELS = 8  # kMaxLevels of the level tables in csrc/
-
-
-class FastLevels(ctypes.Structure):
-    """PgFastLevels of csrc/fast_nms.cu: the images of one launch."""
-
-    _fields_ = [
-        ("img", _VOIDP * MAX_LEVELS), ("raw", _VOIDP * MAX_LEVELS),
-        ("nms", _VOIDP * MAX_LEVELS), ("h", _INT * MAX_LEVELS),
-        ("w", _INT * MAX_LEVELS), ("count", _INT),
-    ]
-
-
-class PatchLevels(ctypes.Structure):
-    """PgPatchLevels of csrc/patch_gather.cu: the images of one launch and
-    each one's keypoints."""
-
-    _fields_ = [
-        ("img", _VOIDP * MAX_LEVELS), ("yx", _VOIDP * MAX_LEVELS),
-        ("h", _INT * MAX_LEVELS), ("w", _INT * MAX_LEVELS),
-        ("num_keypoints", _INT * MAX_LEVELS), ("count", _INT),
-    ]
-
-
-class BlurLevels(ctypes.Structure):
-    """PgBlurLevels of csrc/blur_patch_gather.cu: the images of one launch
-    and how many of the keypoints each holds."""
-
-    _fields_ = [
-        ("img", _VOIDP * MAX_LEVELS), ("h", _INT * MAX_LEVELS),
-        ("w", _INT * MAX_LEVELS), ("num_keypoints", _INT * MAX_LEVELS),
-        ("count", _INT),
-    ]
-
-
-class BnArgs(ctypes.Structure):
-    """PgBn of csrc/bn_relu.cuh: one call's tensors and sizes."""
-
-    _fields_ = [
-        ("x", _VOIDP), ("g", _VOIDP), ("out", _VOIDP), ("scale", _VOIDP), ("bias", _VOIDP),
-        ("mean_ra", _VOIDP), ("var_ra", _VOIDP), ("stats", _VOIDP), ("grads", _VOIDP),
-        ("partial", _VOIDP), ("rows", ctypes.c_longlong), ("channels", _INT), ("vec", _INT),
-        ("tiles", _INT), ("parts", _INT), ("groups", _INT), ("eps", ctypes.c_float),
-        ("momentum", ctypes.c_float), ("one_minus_momentum", ctypes.c_float),
-    ]
-
-
-class ConvArgs(ctypes.Structure):
-    """PgConv of csrc/conv_bwd.cuh: one call's tensors and sizes."""
-
-    _fields_ = [
-        ("x", _VOIDP), ("dy", _VOIDP), ("w", _VOIDP), ("dx", _VOIDP), ("partial", _VOIDP),
-        ("dw", _VOIDP), ("db", _VOIDP),
-        *((name, _INT) for name in ("batch", "hin", "win", "hout", "wout", "ksize", "stride",
-                                    "groups", "cin", "m", "cout", "tile", "long_threads",
-                                    "splits", "chunk", "rows", "cols")),
-    ]
-
-
-_FLOATP = ctypes.POINTER(ctypes.c_float)
-# C signature of each entry point: (argtypes, restype).
-_SIGNATURES = {
-    # levels, threshold, stream
-    "pg_fast_nms_levels": ([ctypes.POINTER(FastLevels), ctypes.c_float, _VOIDP], _INT),
-    # levels, out, radius, stream
-    "pg_gather_patches_levels": ([ctypes.POINTER(PatchLevels), _VOIDP, _INT, _VOIDP], _INT),
-    # levels, yx, taps (host), out, radius, blur radius, stream
-    "pg_blur_patch_gather_levels": (
-        [ctypes.POINTER(BlurLevels), _VOIDP, _FLOATP, _VOIDP, _INT, _INT, _VOIDP], _INT
-    ),
-    # args, stream
-    **{f"pg_bn_relu_{way}_{dtype}": ([ctypes.POINTER(BnArgs), _VOIDP], _INT)
-       for way in ("forward", "backward") for dtype in ("f32", "bf16")},
-    # args, stream
-    **{f"pg_conv_{way}_f32": ([ctypes.POINTER(ConvArgs), _VOIDP], _INT)
-       for way in ("dgrad", "wgrad")},
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -189,30 +111,34 @@ def build(stem=None) -> BuildResult:
     return BuildResult(tuple(targets), time.perf_counter() - start, "".join(logs))
 
 
-class _Kernels:
-    """The entry points of the loaded kernel libraries, as attributes; with
-    every library loaded, each entry point is found exactly once."""
-
-    def __init__(self, libs, every_source):
-        for name, (argtypes, restype) in _SIGNATURES.items():
-            found = [getattr(lib, name) for lib in libs if hasattr(lib, name)]
-            if len(found) > 1 or (every_source and not found):
-                raise RuntimeError(
-                    f"CUDA entry point {name} found in {len(found)} kernel libraries"
-                )
-            if not found:
-                continue
-            fn = found[0]
-            fn.argtypes = argtypes
-            fn.restype = restype
-            setattr(self, name, fn)
+def bind(lib, signatures) -> types.SimpleNamespace:
+    """The entry points of ``lib`` that ``signatures`` names, as
+    attributes, each given its ``(argtypes, restype)``; no other entry point
+    is bound. A name ``lib`` lacks raises."""
+    bound = {}
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name, None)
+        if fn is None:
+            raise RuntimeError(f"CUDA entry point {name} not found in {lib}")
+        fn.argtypes = argtypes
+        fn.restype = restype
+        bound[name] = fn
+    return types.SimpleNamespace(**bound)
 
 
-@functools.cache
-def library(stem=None) -> _Kernels:
-    """The loaded kernel libraries, built on first call: every source's, or
-    csrc/<stem>.cu's alone."""
-    return _Kernels([ctypes.CDLL(str(path)) for path in build(stem).paths], stem is None)
+_LIBRARIES = {}
+_LOAD_LOCK = threading.Lock()
+
+
+def library(stem: str, signatures) -> types.SimpleNamespace:
+    """csrc/<stem>.cu's library, built and loaded on the first call, with
+    the entry points of ``signatures`` ({name: (argtypes, restype)})
+    bound. The module that launches a source's kernels owns its signatures;
+    later calls return the first call's binding."""
+    with _LOAD_LOCK:
+        if stem not in _LIBRARIES:
+            _LIBRARIES[stem] = bind(ctypes.CDLL(str(build(stem).paths[0])), signatures)
+        return _LIBRARIES[stem]
 
 
 def current_stream(device) -> int:

@@ -14,10 +14,18 @@ bfloat16, else it raises); a CPU tensor runs the plain version,
 kernels' arithmetic: statistics summed in float64, every other operation in
 float32 (the wider of x's dtype and float32), rounded op by op as PyTorch's
 separate ops round. x is [B, C] or [B, C, H, W]; the statistics are over
-every axis but C, as the folded path's ``_bn_train`` takes them, with the
+every axis but C, as ``bn_train_ops`` takes them, with the
 ReLU applied after the cast to x's dtype. The kernels read a [B, C, H, W]
 activation in its channels-last order, the order cuDNN leaves the folded
 convolutions' outputs in, so y and dx of a [B, C, H, W] x are channels-last.
+
+``block_bn_relu`` is the folded path's one call for a block's batch norm
+and ReLU, in train and in eval mode; this module decides what runs
+(``takes_kernels``): in train mode a CUDA tensor takes the Function and
+tallies ``folded.bn_fused``; a CPU tensor in train mode takes
+``bn_train_ops`` and eval mode ``bn_eval_ops``, PyTorch ops written as the
+JAX package's folded path writes them. This module also holds the kernels'
+C interface (``BnArgs``, ``SIGNATURES``).
 """
 
 from __future__ import annotations
@@ -26,8 +34,10 @@ import ctypes
 import math
 
 import torch
+import torch.nn.functional as F
 
 from pilotguru_tpu_torch import cuda_lib
+from pilotguru_tpu_torch.utils import profiling
 
 COUNTER = cuda_lib.KernelCounter("bn_relu_forward")
 BACKWARD_COUNTER = cuda_lib.KernelCounter("bn_relu_backward")
@@ -40,6 +50,32 @@ _SUFFIXES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _THREADS = 256
 _MAX_WIDTH = 64
 _STATS_BLOCKS = 1024  # about one wave of 8 blocks on 132 SMs
+
+
+class BnArgs(ctypes.Structure):
+    """PgBn of csrc/bn_relu.cuh: one call's tensors and sizes."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in ("x", "g", "out", "scale", "bias", "mean_ra",
+                                               "var_ra", "stats", "grads", "partial")),
+        ("rows", ctypes.c_longlong),
+        *((name, ctypes.c_int) for name in ("channels", "vec", "tiles", "parts", "groups")),
+        *((name, ctypes.c_float) for name in ("eps", "momentum", "one_minus_momentum")),
+    ]
+
+
+# Each source's entry points: {stem: {name: (argtypes, restype)}}; args, stream.
+SIGNATURES = {
+    f"bn_relu_{suffix}": {f"pg_bn_relu_{way}_{suffix}": (
+        [ctypes.POINTER(BnArgs), ctypes.c_void_p], ctypes.c_int) for way in ("forward", "backward")}
+    for suffix in _SUFFIXES.values()
+}
+
+
+def library(stem: str):
+    """csrc/<stem>.cu's library with its entry points bound, built on the
+    first call."""
+    return cuda_lib.library(stem, SIGNATURES[stem])
 
 
 def kernel_mapping(rows: int, channels: int):
@@ -162,13 +198,13 @@ def _launch(name, counter, x, scale, bias, stats, **fields):
     tickets = tiles * (groups + 1)
     scratch = torch.empty(2 * (parts + groups) * c + (tickets + 1) // 2, dtype=torch.float64,
                           device=x.device)
-    args = cuda_lib.BnArgs(
+    args = BnArgs(
         x=x.data_ptr(), scale=scale.data_ptr(), bias=bias.data_ptr(), stats=stats.data_ptr(),
         partial=scratch.data_ptr(), rows=rows, channels=c, vec=vec, tiles=tiles, parts=parts,
         groups=groups, **fields)
     suffix = _SUFFIXES[x.dtype]
     name = f"{name}_{suffix}"
-    fn = getattr(cuda_lib.library(f"bn_relu_{suffix}"), name)
+    fn = getattr(library(f"bn_relu_{suffix}"), name)
     with torch.cuda.device(x.device):  # the launch's device owns the stream
         err = fn(ctypes.byref(args), cuda_lib.current_stream(x.device))
     counter.count_launch()
@@ -231,3 +267,59 @@ def bn_relu_train(x, scale, bias, mean_ra, var_ra, eps: float, momentum: float):
     scale, bias, mean_ra and var_ra are [C] float32 (x's dtype or wider on
     the CPU)."""
     return _BnRelu.apply(x, scale, bias, mean_ra, var_ra, eps, momentum)
+
+
+def _wide(x):
+    """x in float32, or wider: flax's batch norm computes in at least
+    float32."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _broadcast(x):
+    """(the axes the statistics reduce over, the [C] shape that broadcasts
+    over x) of a [B, C] or [B, C, H, W] x."""
+    return ((0, 2, 3), (1, -1, 1, 1)) if x.dim() == 4 else ((0,), (1, -1))
+
+
+def bn_train_ops(x, scale, bias, mean_ra, var_ra, eps: float, momentum: float):
+    """Batch norm of x in train mode in float32 as PyTorch ops, as the JAX
+    package's folded path writes it: the biased batch variance normalises
+    and updates. Returns (y, new_mean_ra, new_var_ra)."""
+    axes, shape = _broadcast(x)
+    xf = _wide(x)
+    mean = xf.mean(axes)
+    var = torch.clamp(torch.mean(xf * xf, axes) - mean * mean, min=0.0)
+    y = ((xf - mean.view(shape)) * torch.rsqrt(var + eps).view(shape) * scale.view(shape)
+         + bias.view(shape))
+    new_mean = momentum * mean_ra + (1.0 - momentum) * mean.detach()
+    new_var = momentum * var_ra + (1.0 - momentum) * var.detach()
+    return y, new_mean, new_var
+
+
+def bn_eval_ops(x, scale, bias, mean_ra, var_ra, eps: float):
+    """Batch norm of x in eval mode in float32 as PyTorch ops."""
+    _, shape = _broadcast(x)
+    return ((_wide(x) - mean_ra.view(shape)) * torch.rsqrt(var_ra + eps).view(shape)
+            * scale.view(shape) + bias.view(shape))
+
+
+def takes_kernels(x: torch.Tensor, train: bool) -> bool:
+    """Whether ``block_bn_relu`` of x runs the fused kernels: in train mode
+    on a CUDA tensor."""
+    return train and x.is_cuda
+
+
+def block_bn_relu(x, scale, bias, mean_ra, var_ra, eps: float, momentum: float, train: bool,
+                  dtype: torch.dtype):
+    """relu(batch norm of x in float32, cast to ``dtype``) for a folded
+    block, and the running statistics: (y, new_mean, new_var), updated with
+    ``momentum`` in train mode, ``mean_ra`` and ``var_ra`` as given in eval
+    mode. x is [B, C] or [B, C, H, W]; the [C] parameters and statistics
+    are float32."""
+    if not train:
+        return F.relu(bn_eval_ops(x, scale, bias, mean_ra, var_ra, eps).to(dtype)), mean_ra, var_ra
+    if takes_kernels(x, train):
+        profiling.count("folded.bn_fused")
+        return bn_relu_train(x, scale, bias, mean_ra, var_ra, eps, momentum)
+    y, new_mean, new_var = bn_train_ops(x, scale, bias, mean_ra, var_ra, eps, momentum)
+    return F.relu(y.to(dtype)), new_mean, new_var

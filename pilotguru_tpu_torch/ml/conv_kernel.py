@@ -25,6 +25,13 @@ gradient as one more column of ones.
 
 Launch counts: ``COUNTER`` counts dgrad's launches, ``BACKWARD_COUNTER``
 wgrad's (its partial products and their reduction as one).
+
+``block_conv`` is the folded path's one call for a block's conv, in train
+and in eval mode; this module decides what runs (``hand_backward``): in
+train mode a CUDA float32 tensor takes ``folded_conv`` and tallies
+``folded.conv_bwd_hand``; anything else takes ``F.conv2d`` with the folded
+kernel cast to the compute dtype, and autograd. This module also holds the
+kernels' C interface (``ConvArgs``, ``SIGNATURES``).
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from pilotguru_tpu_torch import cuda_lib
+from pilotguru_tpu_torch.utils import profiling
 
 COUNTER = cuda_lib.KernelCounter("conv_dgrad")
 BACKWARD_COUNTER = cuda_lib.KernelCounter("conv_wgrad")
@@ -52,6 +60,30 @@ _SM_THREADS = 512  # threads a wave holds an SM: the kernels' registers allow th
 # (kernel size, stride) pairs each kernel is built for.
 DGRAD_SHAPES = ((5, 2), (3, 1), (3, 2))
 WGRAD_SHAPES = ((5, 2), (3, 1), (3, 2), (8, 4))
+
+
+class ConvArgs(ctypes.Structure):
+    """PgConv of csrc/conv_bwd.cuh: one call's tensors and sizes."""
+
+    _fields_ = [
+        *((name, ctypes.c_void_p) for name in ("x", "dy", "w", "dx", "partial", "dw", "db")),
+        *((name, ctypes.c_int) for name in ("batch", "hin", "win", "hout", "wout", "ksize",
+                                            "stride", "groups", "cin", "m", "cout", "tile",
+                                            "long_threads", "splits", "chunk", "rows", "cols")),
+    ]
+
+
+# Each source's entry points: {stem: {name: (argtypes, restype)}}; args, stream.
+SIGNATURES = {"conv_bwd_f32": {
+    f"pg_conv_{way}_f32": ([ctypes.POINTER(ConvArgs), ctypes.c_void_p], ctypes.c_int)
+    for way in ("dgrad", "wgrad")
+}}
+
+
+def library(stem: str):
+    """csrc/<stem>.cu's library with its entry points bound, built on the
+    first call."""
+    return cuda_lib.library(stem, SIGNATURES[stem])
 
 
 def fold_conv_kernel(k: torch.Tensor) -> torch.Tensor:
@@ -190,7 +222,7 @@ def _check(name, t: torch.Tensor, device):
 
 
 def _launch(name, counter, args, device):
-    fn = getattr(cuda_lib.library("conv_bwd_f32"), name)
+    fn = getattr(library("conv_bwd_f32"), name)
     with torch.cuda.device(device):  # the launch's device owns the stream
         err = fn(ctypes.byref(args), cuda_lib.current_stream(device))
     counter.count_launch()
@@ -217,9 +249,9 @@ def _dgrad_cuda(dy, w, x_shape, stride):
     sizes = _sizes(x_shape, dy, ksize, stride, groups)
     tile, long_threads, chunk, rows, cols = dgrad_mapping(
         sizes["cin"], sizes["m"], sizes["hin"], sizes["win"], ksize, stride)
-    args = cuda_lib.ConvArgs(dy=dy.data_ptr(), w=w.data_ptr(), dx=dx.data_ptr(),
-                             cout=sizes["m"], tile=tile, long_threads=long_threads, chunk=chunk,
-                             rows=rows, cols=cols, **sizes)
+    args = ConvArgs(dy=dy.data_ptr(), w=w.data_ptr(), dx=dx.data_ptr(), cout=sizes["m"],
+                    tile=tile, long_threads=long_threads, chunk=chunk, rows=rows, cols=cols,
+                    **sizes)
     _launch("pg_conv_dgrad_f32", COUNTER, args, dy.device)
     return dx
 
@@ -240,9 +272,9 @@ def _wgrad_cuda(x, dy, kernel_shape, stride, groups):
                           dtype=torch.float32, device=dy.device)
     dw = torch.empty(kernel_shape, dtype=torch.float32, device=dy.device)
     db = torch.empty((nets, cout), dtype=torch.float32, device=dy.device)
-    args = cuda_lib.ConvArgs(x=x.data_ptr(), dy=dy.data_ptr(), partial=partial.data_ptr(),
-                             dw=dw.data_ptr(), db=db.data_ptr(), cout=cout, tile=tile,
-                             long_threads=long_threads, splits=splits, **sizes)
+    args = ConvArgs(x=x.data_ptr(), dy=dy.data_ptr(), partial=partial.data_ptr(),
+                    dw=dw.data_ptr(), db=db.data_ptr(), cout=cout, tile=tile,
+                    long_threads=long_threads, splits=splits, **sizes)
     _launch("pg_conv_wgrad_f32", BACKWARD_COUNTER, args, dy.device)
     return dw, db
 
@@ -303,3 +335,22 @@ def folded_conv(x, kernel, bias, stride, groups: int):
     backward through the hand-written pair (or, on the CPU, its plain
     version)."""
     return _FoldedConv.apply(x, kernel, bias, stride, groups)
+
+
+def hand_backward(x: torch.Tensor, train: bool) -> bool:
+    """Whether ``block_conv`` of x takes the hand-written backward: in train
+    mode on a CUDA float32 tensor. bfloat16 keeps cuDNN, whose tensor cores
+    an FMA design would lose to; the CPU keeps ``F.conv2d`` and autograd."""
+    return train and x.is_cuda and x.dtype == torch.float32
+
+
+def block_conv(x, kernel, bias, stride, groups: int, train: bool, dtype: torch.dtype):
+    """A folded block's conv of x with the stacked kernel [N, K, K, cin,
+    cout] and bias [N, cout], VALID, ``groups`` 1 or N: ``folded_conv``
+    where ``hand_backward`` holds, else ``F.conv2d`` with the folded kernel
+    and bias cast to ``dtype``."""
+    if hand_backward(x, train):
+        profiling.count("folded.conv_bwd_hand")
+        return folded_conv(x, kernel, bias, stride, groups)
+    return F.conv2d(x, fold_conv_kernel(kernel).to(dtype), bias.reshape(-1).to(dtype),
+                    stride=stride, groups=groups)

@@ -1,8 +1,8 @@
 """A foldable net's ensemble folded into channels: N nets as one program
 (port of pilotguru_tpu/ml/folded.py, which folds the PilotNet trunk).
 
-A foldable net (PilotNet, the Udacity Rambo net) is its trunks
-(``model.trunks``, ml/models.py): each reads the frame through conv blocks,
+A foldable net (PilotNet, the Udacity Rambo net, with ReLU blocks) is its
+trunks (``model.trunks``, ml/models.py): each reads the frame through conv blocks,
 flattens and runs FC blocks, then, in Rambo, its own dense head; the
 trunks' outputs are concatenated into the net's last dense layer. Each
 net's math is unchanged; the ensemble axis rides in the channels:
@@ -13,14 +13,15 @@ net's math is unchanged; the ensemble axis rides in the channels:
 - its later convs are grouped convolutions (``groups=N``): each net's
   channels feed only its own;
 - batch norm is per channel, so over the N * C folded channels it computes
-  each net's own statistics; in train mode on the card, the batch norm, its
-  cast to the compute dtype and the ReLU run as one hand-written kernel
-  pair (ml/bn_relu_kernel.py), on the CPU as PyTorch ops (``_bn_train``);
+  each net's own statistics; a block's batch norm, its cast to the compute
+  dtype and the ReLU are one call of ml/bn_relu_kernel.py, which runs them
+  as a hand-written kernel pair in train mode on the card;
 - the dense layers are batched per-net products (``einsum`` over the net
   axis, a cuBLAS batched GEMM);
-- in train mode on the card in float32, each conv's backward (the input's,
-  the weights' and the bias's gradients) is a hand-written kernel pair
-  (ml/conv_kernel.py), its forward cuDNN's convolution as elsewhere.
+- each conv is one call of ml/conv_kernel.py, which in train mode on the
+  card in float32 takes its backward (the input's, the weights' and the
+  bias's gradients) through a hand-written kernel pair, its forward cuDNN's
+  convolution as elsewhere.
 
 Strides, dropout rates and whether a block has batch norm are read off the
 model's blocks; kernel sizes and channel counts off the parameter shapes.
@@ -50,50 +51,22 @@ import torch.nn.functional as F
 
 from pilotguru_tpu_torch.ml import bn_relu_kernel, conv_kernel
 from pilotguru_tpu_torch.ml import models as models_lib
-from pilotguru_tpu_torch.utils import profiling
 
 _BN_EPS = 1e-5  # flax nn.BatchNorm default
 _BN_MOMENTUM = 0.9  # flax's convention
 
 
 def foldable(model) -> bool:
-    """True when the folded path computes this model: PilotNet or the
-    Udacity Rambo net."""
-    return isinstance(model, (models_lib.NvidiaSingleFrameNet, models_lib.UdacityRamboNet))
-
-
-def hand_conv_backward(x: torch.Tensor, train: bool) -> bool:
-    """Whether a trunk's conv of x takes ml/conv_kernel.py's backward: in
-    train mode on a CUDA float32 tensor. bfloat16 keeps cuDNN, whose tensor
-    cores an FMA design would lose to; the CPU keeps ``F.conv2d`` and
-    autograd."""
-    return train and x.is_cuda and x.dtype == torch.float32
-
-
-def _wide(x):
-    """x in float32, or wider: flax's batch norm computes in at least
-    float32."""
-    return x.to(torch.promote_types(x.dtype, torch.float32))
-
-
-def _bn_train(x, reduce_axes, scale, bias, mean_ra, var_ra, shape):
-    """Folded batch norm in train mode in float32, as the JAX package's
-    folded path writes it: the biased batch variance normalises and
-    updates. Returns (y, new_mean_ra, new_var_ra)."""
-    xf = _wide(x)
-    mean = xf.mean(reduce_axes)
-    var = torch.clamp(torch.mean(xf * xf, reduce_axes) - mean * mean, min=0.0)
-    y = ((xf - mean.view(shape)) * torch.rsqrt(var + _BN_EPS).view(shape) * scale.view(shape)
-         + bias.view(shape))
-    new_mean = _BN_MOMENTUM * mean_ra + (1.0 - _BN_MOMENTUM) * mean.detach()
-    new_var = _BN_MOMENTUM * var_ra + (1.0 - _BN_MOMENTUM) * var.detach()
-    return y, new_mean, new_var
-
-
-def _bn_eval(x, scale, bias, mean_ra, var_ra, shape):
-    xf = _wide(x)
-    return ((xf - mean_ra.view(shape)) * torch.rsqrt(var_ra + _BN_EPS).view(shape)
-            * scale.view(shape) + bias.view(shape))
+    """True when the folded path computes this model: a net of trunks
+    (PilotNet, the Udacity Rambo net) whose blocks all take a ReLU and,
+    where a block drops out, drop whole channels after a conv and single
+    activations after a dense layer."""
+    if getattr(model, "trunks", None) is None:
+        return False
+    kinds = [(b, models_lib.DROPOUT_2D) for b in model.conv_blocks]
+    kinds += [(b, models_lib.DROPOUT_VANILLA) for b in model.fc_blocks]
+    return all(b.act is F.relu and (b.dropout_prob == 0 or b.dropout_kind == kind)
+               for b, kind in kinds)
 
 
 def _dropout_mask(generator, shape, rate, dtype, device):
@@ -161,8 +134,8 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
     [N, B, label_dims] in float32, or in the compute dtype where it is
     wider, and the new batch_stats stacked like the input's; the input's in
     eval mode)."""
-    if any(b.act is not F.relu for b in (*model.conv_blocks, *model.fc_blocks)):
-        raise NotImplementedError("folded path supports relu trunks only")
+    if not foldable(model):
+        raise NotImplementedError("the folded path computes the nets `foldable` takes only")
     frame = inputs[models_lib.FRAME_IMG]
     dtype = models_lib.resolve_compute_dtype(model.options, frame.device)
     n = params["ConvBlock_0"]["Conv_0"]["kernel"].shape[0]
@@ -175,27 +148,19 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
     new_stats = {name: {k: dict(v) for k, v in block.items()}
                  for name, block in batch_stats.items()}
 
-    def bn_relu(x, block_name, reduce_axes, shape):
-        """relu(batch norm of x in float32, cast to the compute dtype). In
-        train mode a CUDA tensor goes through the fused kernels
-        (ml/bn_relu_kernel.py), a CPU tensor through ``_bn_train``."""
+    def bn_relu(x, block_name):
+        """relu(batch norm of x in float32, cast to the compute dtype),
+        keeping the block's new running statistics in train mode."""
         bn_params = params[block_name]["BatchNorm_0"]
         stats = batch_stats[block_name]["BatchNorm_0"]
-        scale, bias = bn_params["scale"].reshape(-1), bn_params["bias"].reshape(-1)
-        mean_ra, var_ra = stats["mean"].reshape(-1), stats["var"].reshape(-1)
-        if not train:
-            return F.relu(_bn_eval(x, scale, bias, mean_ra, var_ra, shape).to(dtype))
-        if x.is_cuda:
-            profiling.count("folded.bn_fused")
-            y, new_mean, new_var = bn_relu_kernel.bn_relu_train(
-                x, scale, bias, mean_ra, var_ra, _BN_EPS, _BN_MOMENTUM)
-        else:
-            y, new_mean, new_var = _bn_train(x, reduce_axes, scale, bias, mean_ra, var_ra,
-                                             shape)
-            y = F.relu(y.to(dtype))
-        per_net = stats["mean"].shape
-        new_stats[block_name]["BatchNorm_0"] = {"mean": new_mean.reshape(per_net),
-                                                "var": new_var.reshape(per_net)}
+        y, new_mean, new_var = bn_relu_kernel.block_bn_relu(
+            x, bn_params["scale"].reshape(-1), bn_params["bias"].reshape(-1),
+            stats["mean"].reshape(-1), stats["var"].reshape(-1), _BN_EPS, _BN_MOMENTUM, train,
+            dtype)
+        if train:
+            per_net = stats["mean"].shape
+            new_stats[block_name]["BatchNorm_0"] = {"mean": new_mean.reshape(per_net),
+                                                    "var": new_var.reshape(per_net)}
         return y
 
     def dense(x, layer):
@@ -218,13 +183,8 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
             # plain conv with the kernels concatenated; later convs:
             # block-diagonal groups.
             groups = 1 if pos == 0 else n
-            if hand_conv_backward(x, train):
-                profiling.count("folded.conv_bwd_hand")
-                x = conv_kernel.folded_conv(x, k, b, block.layer.stride, groups)
-            else:
-                x = F.conv2d(x, conv_kernel.fold_conv_kernel(k).to(dtype),
-                             b.reshape(-1).to(dtype), stride=block.layer.stride, groups=groups)
-            x = bn_relu(x, name, (0, 2, 3), (1, -1, 1, 1)) if block.bn is not None else F.relu(x)
+            x = conv_kernel.block_conv(x, k, b, block.layer.stride, groups, train, dtype)
+            x = bn_relu(x, name) if block.bn is not None else F.relu(x)
             if name in masks:
                 x = x * masks[name]  # DROPOUT_2D: whole channels
 
@@ -238,7 +198,7 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
             x = dense(x, params[name]["Dense_0"])
             g = x.shape[-1]
             if model.fc_blocks[j].bn is not None:
-                x = bn_relu(x.reshape(bsz, n * g), name, (0,), (1, -1)).reshape(bsz, n, g)
+                x = bn_relu(x.reshape(bsz, n * g), name).reshape(bsz, n, g)
             else:
                 x = F.relu(x)
             if name in masks:
@@ -253,4 +213,5 @@ def folded_forward(model, params: Dict, batch_stats: Dict, inputs: Dict[str, tor
         lb = params[f"LinearBias_{idx}"]["Dense_0"]["kernel"]  # [N, D, L]
         cond = inputs[meta["input_name"]].to(dtype)  # [B, D]
         out = out + torch.einsum("bd,ndl->bnl", cond, lb.to(dtype))
-    return _wide(out.permute(1, 0, 2)), new_stats
+    out = out.permute(1, 0, 2)
+    return out.to(torch.promote_types(out.dtype, torch.float32)), new_stats

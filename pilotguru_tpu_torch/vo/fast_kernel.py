@@ -5,6 +5,8 @@ Port of pilotguru_tpu/vo/fast_pallas.py::fast_nms_pallas (and of the plain
 (one image) and ``fast_nms_levels`` (every level of a pyramid in one launch)
 dispatch on the image's device: a CPU tensor runs ``fast_nms_plain``; a
 CUDA tensor launches the hand-written kernel in csrc/fast_nms.cu or raises.
+This module holds the kernel's C interface (``FastLevels``,
+``SIGNATURES``) and loads its library alone.
 """
 
 from __future__ import annotations
@@ -31,6 +33,32 @@ FAST_CIRCLE = np.array(
 DEFAULT_THRESHOLD = 20.0 / 255.0
 
 COUNTER = cuda_lib.KernelCounter("fast_nms")
+
+MAX_LEVELS = 8  # kMaxLevels of the level tables of csrc/fast_nms.cu and the patch gathers
+
+
+class FastLevels(ctypes.Structure):
+    """PgFastLevels of csrc/fast_nms.cu: the images of one launch."""
+
+    _fields_ = [
+        ("img", ctypes.c_void_p * MAX_LEVELS), ("raw", ctypes.c_void_p * MAX_LEVELS),
+        ("nms", ctypes.c_void_p * MAX_LEVELS), ("h", ctypes.c_int * MAX_LEVELS),
+        ("w", ctypes.c_int * MAX_LEVELS), ("count", ctypes.c_int),
+    ]
+
+
+# Each source's entry points: {stem: {name: (argtypes, restype)}}.
+SIGNATURES = {"fast_nms": {
+    # levels, threshold, stream
+    "pg_fast_nms_levels": ([ctypes.POINTER(FastLevels), ctypes.c_float, ctypes.c_void_p],
+                           ctypes.c_int),
+}}
+
+
+def library(stem: str):
+    """csrc/<stem>.cu's library with its entry points bound, built on the
+    first call."""
+    return cuda_lib.library(stem, SIGNATURES[stem])
 
 
 def _threshold_f32(threshold: float) -> float:
@@ -110,11 +138,11 @@ def fast_nms_levels(
 ) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """``fast_nms`` of every image of a pyramid: [(raw, nms), ...] in the
     images' order. On CUDA one launch covers all levels (at most
-    ``cuda_lib.MAX_LEVELS``), and the outputs are views of one allocation."""
+    ``MAX_LEVELS``), and the outputs are views of one allocation."""
     images = list(images)
-    if not 1 <= len(images) <= cuda_lib.MAX_LEVELS:
+    if not 1 <= len(images) <= MAX_LEVELS:
         raise ValueError(
-            f"fast_nms_levels: want 1 to {cuda_lib.MAX_LEVELS} images, got {len(images)}"
+            f"fast_nms_levels: want 1 to {MAX_LEVELS} images, got {len(images)}"
         )
     device = images[0].device
     for image in images:
@@ -129,7 +157,7 @@ def fast_nms_levels(
         raise ValueError(f"fast_nms_levels: unsupported device {device}")
     sizes = [image.numel() for image in images]
     buffer = torch.empty((2 * sum(sizes),), dtype=torch.float32, device=device)
-    table = cuda_lib.FastLevels(count=len(images))
+    table = FastLevels(count=len(images))
     out, offset = [], 0
     for level, (image, size) in enumerate(zip(images, sizes)):
         raw = buffer[offset : offset + size].view(image.shape)
@@ -140,7 +168,7 @@ def fast_nms_levels(
         table.nms[level] = nms.data_ptr()
         table.h[level], table.w[level] = image.shape
         out.append((raw, nms))
-    lib = cuda_lib.library()
+    lib = library("fast_nms")
     # The kernel launches on the current device, which must own the stream.
     with torch.cuda.device(device):
         err = lib.pg_fast_nms_levels(

@@ -28,9 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from pilotguru_tpu_torch.cuda_lib import MAX_LEVELS
 from pilotguru_tpu_torch.vo.fast_kernel import (  # noqa: F401
     FAST_CIRCLE,
+    MAX_LEVELS,
     fast_nms,
     fast_nms_levels,
 )

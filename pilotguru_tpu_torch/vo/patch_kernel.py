@@ -8,7 +8,9 @@ plain ``extract_patches`` of pilotguru_tpu/vo/features.py) and of
 ``gather_blurred_patches_levels`` (the ``_levels`` entries: every level of a
 pyramid in one launch) dispatch on the image's device: a CPU tensor runs the
 plain version; a CUDA tensor launches the hand-written kernel
-(csrc/patch_gather.cu, csrc/blur_patch_gather.cu) or raises.
+(csrc/patch_gather.cu, csrc/blur_patch_gather.cu) or raises. This module
+holds the kernels' C interface (``PatchLevels``, ``BlurLevels``,
+``SIGNATURES``) and loads each source's library alone.
 """
 
 from __future__ import annotations
@@ -20,12 +22,56 @@ import numpy as np
 import torch
 
 from pilotguru_tpu_torch import cuda_lib
+from pilotguru_tpu_torch.vo.fast_kernel import MAX_LEVELS
 
 PATCH_GATHER_RADIUS = 19  # covers orientation (r=15) + rotated BRIEF taps
 BLUR_SIGMA = 2.0
 
 COUNTER = cuda_lib.KernelCounter("gather_patches")
 BLUR_COUNTER = cuda_lib.KernelCounter("gather_blurred_patches")
+
+_VOIDP = ctypes.c_void_p
+_INT = ctypes.c_int
+
+
+class PatchLevels(ctypes.Structure):
+    """PgPatchLevels of csrc/patch_gather.cu: the images of one launch and
+    each one's keypoints."""
+
+    _fields_ = [
+        ("img", _VOIDP * MAX_LEVELS), ("yx", _VOIDP * MAX_LEVELS),
+        ("h", _INT * MAX_LEVELS), ("w", _INT * MAX_LEVELS),
+        ("num_keypoints", _INT * MAX_LEVELS), ("count", _INT),
+    ]
+
+
+class BlurLevels(ctypes.Structure):
+    """PgBlurLevels of csrc/blur_patch_gather.cu: the images of one launch
+    and how many of the keypoints each holds."""
+
+    _fields_ = [
+        ("img", _VOIDP * MAX_LEVELS), ("h", _INT * MAX_LEVELS),
+        ("w", _INT * MAX_LEVELS), ("num_keypoints", _INT * MAX_LEVELS),
+        ("count", _INT),
+    ]
+
+
+# Each source's entry points: {stem: {name: (argtypes, restype)}}.
+SIGNATURES = {
+    # levels, out, radius, stream
+    "patch_gather": {"pg_gather_patches_levels": (
+        [ctypes.POINTER(PatchLevels), _VOIDP, _INT, _VOIDP], _INT)},
+    # levels, yx, taps (host), out, radius, blur radius, stream
+    "blur_patch_gather": {"pg_blur_patch_gather_levels": (
+        [ctypes.POINTER(BlurLevels), _VOIDP, ctypes.POINTER(ctypes.c_float), _VOIDP, _INT, _INT,
+         _VOIDP], _INT)},
+}
+
+
+def library(stem: str):
+    """csrc/<stem>.cu's library with its entry points bound, built on the
+    first call."""
+    return cuda_lib.library(stem, SIGNATURES[stem])
 
 
 def gaussian_kernel(sigma: float):
@@ -82,9 +128,9 @@ def gather_patches(
 
 def _check_levels(name, images, yx_per_level):
     """Validate the arguments of an all-level entry; returns the device."""
-    if not 1 <= len(images) <= cuda_lib.MAX_LEVELS or len(images) != len(yx_per_level):
+    if not 1 <= len(images) <= MAX_LEVELS or len(images) != len(yx_per_level):
         raise ValueError(
-            f"{name}: want 1 to {cuda_lib.MAX_LEVELS} images and as many keypoint sets, "
+            f"{name}: want 1 to {MAX_LEVELS} images and as many keypoint sets, "
             f"got {len(images)} and {len(yx_per_level)}"
         )
     device = images[0].device
@@ -104,7 +150,7 @@ def gather_patches_levels(
     """``gather_patches`` of every level of a pyramid: images[l] [H_l, W_l]
     float32 and yx_per_level[l] [K_l, 2] int32 -> a list of [K_l, S, S]
     patches. On CUDA one launch covers all levels (at most
-    ``cuda_lib.MAX_LEVELS``), reading each level's keypoints where they lie,
+    ``MAX_LEVELS``), reading each level's keypoints where they lie,
     and the outputs are views of one allocation; the kernel is built for
     radius PATCH_GATHER_RADIUS only."""
     name = "gather_patches_levels"
@@ -116,7 +162,7 @@ def gather_patches_levels(
     if radius != PATCH_GATHER_RADIUS:
         raise ValueError(f"{name}: the kernel is built for radius {PATCH_GATHER_RADIUS}, "
                          f"got radius {radius}")
-    table = cuda_lib.PatchLevels(count=len(images))
+    table = PatchLevels(count=len(images))
     for level, (image, yx) in enumerate(zip(images, yx_per_level)):
         table.img[level], table.yx[level] = image.data_ptr(), yx.data_ptr()
         table.h[level], table.w[level] = image.shape
@@ -126,7 +172,7 @@ def gather_patches_levels(
     out = torch.empty((sum(counts), size, size), dtype=torch.float32, device=device)
     if sum(counts) > 0:
         with torch.cuda.device(device):  # the launch's device owns the stream
-            err = cuda_lib.library().pg_gather_patches_levels(
+            err = library("patch_gather").pg_gather_patches_levels(
                 ctypes.byref(table), out.data_ptr(), radius, cuda_lib.current_stream(device))
         COUNTER.count_launch()
         cuda_lib.check_launch(name, err)
@@ -210,14 +256,14 @@ def gather_blurred_patches_levels(
     """``gather_blurred_patches`` of every level of a pyramid: images[l]
     [H_l, W_l] float32 and yx_per_level[l] [K_l, 2] int32 -> a list of
     [K_l, S, S] patches. On CUDA one launch covers all levels (at most
-    ``cuda_lib.MAX_LEVELS``), and the outputs are views of one allocation."""
+    ``MAX_LEVELS``), and the outputs are views of one allocation."""
     name = "gather_blurred_patches_levels"
     images, yx_per_level = list(images), list(yx_per_level)
     device = _check_levels(name, images, yx_per_level)
     if device.type == "cpu":
         return [gather_blurred_patches_plain(image, yx, radius, sigma)
                 for image, yx in zip(images, yx_per_level)]
-    table = cuda_lib.BlurLevels(count=len(images))
+    table = BlurLevels(count=len(images))
     for level, (image, yx) in enumerate(zip(images, yx_per_level)):
         taps, br = _check_blur_shape(name, image, radius, sigma)
         table.img[level] = image.data_ptr()
@@ -228,7 +274,7 @@ def gather_blurred_patches_levels(
     out = torch.empty((sum(counts), size, size), dtype=torch.float32, device=device)
     if sum(counts) > 0:
         all_yx = yx_per_level[0] if len(yx_per_level) == 1 else torch.cat(yx_per_level)
-        lib = cuda_lib.library()
+        lib = library("blur_patch_gather")
         with torch.cuda.device(device):  # the launch's device owns the stream
             err = lib.pg_blur_patch_gather_levels(
                 ctypes.byref(table), all_yx.data_ptr(), taps, out.data_ptr(), radius, br,

@@ -1,6 +1,9 @@
 """The fused batch norm + ReLU's plain version (ml/bn_relu_kernel.py), which
-the CUDA kernels repeat, against autograd of the folded path's ``_bn_train``
-and ReLU, on the CPU."""
+the CUDA kernels repeat, against autograd of the folded path's op-by-op
+``bn_train_ops`` and ReLU, on the CPU; the route a folded block's batch
+norm takes (``block_bn_relu``) and its tally."""
+
+import types
 
 import numpy as np
 import pytest
@@ -35,9 +38,8 @@ def _case(shape, channels_last, dtype=torch.float64, seed=0):
 
 def _autograd(x, g, scale, bias, mean_ra, var_ra):
     """The folded path's CPU expression and its autograd gradients."""
-    axes, shape = ((0, 2, 3), (1, -1, 1, 1)) if x.dim() == 4 else ((0,), (1, -1))
     xr, sr, br = (t.clone().requires_grad_(True) for t in (x, scale, bias))
-    y, new_mean, new_var = folded._bn_train(xr, axes, sr, br, mean_ra, var_ra, shape)
+    y, new_mean, new_var = bk.bn_train_ops(xr, sr, br, mean_ra, var_ra, EPS, MOMENTUM)
     y = F.relu(y.to(x.dtype))
     y.backward(g)
     return y.detach(), new_mean, new_var, xr.grad, sr.grad, br.grad
@@ -140,7 +142,7 @@ def test_kernel_mapping_covers_each_channel_once(shape):
 
 
 def test_folded_train_forward_on_the_cpu_takes_the_plain_path():
-    """The folded forward on CPU tensors runs ``_bn_train`` (9 batch norms
+    """The folded forward on CPU tensors runs ``bn_train_ops`` (9 batch norms
     of a PilotNet in train mode), never the kernels' wrapper, and tallies
     nothing: ``folded.bn_fused`` counts the card's calls only."""
     from pilotguru_tpu_torch.ml import models, training
@@ -161,3 +163,55 @@ def test_folded_train_forward_on_the_cpu_takes_the_plain_path():
         folded.folded_forward(model, state.params, state.batch_stats, inputs, False)
     assert timer.tallies == {}
     assert (bk.COUNTER.launches, bk.BACKWARD_COUNTER.launches) == counts
+
+
+@pytest.mark.parametrize("device,dtype,train,want", [
+    ("cpu", torch.float32, True, False), ("cuda", torch.bfloat16, True, True),
+    ("cuda", torch.float32, False, False), ("cuda", torch.float32, True, True)])
+def test_the_route_follows_device_and_mode(device, dtype, train, want):
+    """A train-mode CUDA activation, float32 or bfloat16, takes the fused
+    kernels; a CPU one and eval take PyTorch's ops."""
+    x = types.SimpleNamespace(is_cuda=device == "cuda", dtype=dtype)
+    assert bk.takes_kernels(x, train) is want
+
+
+@pytest.mark.parametrize("net,norms", [("nvidia", 9), ("rambo", 17)])
+def test_a_train_step_through_the_function_tallies_each_batch_norm(net, norms, monkeypatch):
+    """A folded float32 train step whose batch norms take the Function (its
+    plain version on the CPU), as CUDA tensors would, tallies
+    ``folded.bn_fused`` once a batch norm (9 for PilotNet, 17 for Rambo);
+    its losses equal the op-by-op route's within float32 rounding (the
+    plain version sums the statistics in float64). The default CPU route
+    tallies nothing."""
+    from pilotguru_tpu_torch.ml import augmentation, models, training
+    from pilotguru_tpu_torch.utils import profiling
+
+    height, width = (66, 200) if net == "nvidia" else (100, 300)
+    options = {"net_name": net, "net_head_dims": 10, "label_dimensions": 1,
+               "dropout_prob": 0.0, "compute_dtype": "float32"}
+    model = models.make_network(options, [{"input_name": "forward_axis", "input_dims": 3}],
+                                (height, width, 3))
+    tx = training.make_optimizer("sgd", 1e-3)
+    state = training.init_ensemble(model, {}, 2, tx, seed=1)
+    settings = training.TrainSettings(epochs=1, batch_size=4,
+                                      augment=augmentation.AugmentSettings(target_width=width))
+    rng = np.random.default_rng(5)
+    inputs = {"frame_img": torch.as_tensor(rng.integers(0, 256, (4, height, width, 3),
+                                                        dtype=np.uint8)),
+              "forward_axis": torch.as_tensor(rng.normal(size=(4, 3)).astype(np.float32))}
+    labels = torch.as_tensor(rng.normal(0, 0.3, (4, 1)).astype(np.float32))
+
+    def step(fused):
+        monkeypatch.setattr(bk, "takes_kernels", lambda x, train: fused and train)
+        timer = profiling.StageTimer("step")
+        with profiling.recording(timer):
+            _, losses, _ = training.make_train_step(model, tx, settings)(
+                state, inputs, labels, torch.ones((2, 4)), torch.ones(2, dtype=torch.bool),
+                torch.Generator())
+        return losses, dict(timer.tallies)
+
+    losses, tallies = step(True)
+    assert tallies.get("folded.bn_fused") == norms
+    want, plain_tallies = step(False)
+    assert "folded.bn_fused" not in plain_tallies
+    torch.testing.assert_close(losses, want, rtol=1e-5, atol=0)

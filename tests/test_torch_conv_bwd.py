@@ -1,8 +1,8 @@
 """The folded convolutions' hand-written backward (ml/conv_kernel.py) on the
 CPU: its plain version, which the CUDA kernels repeat, against float64
 autograd of ``F.conv2d`` at every conv shape of PilotNet and Rambo; the
-kernels' mapping at the benchmark cells' shapes; the route the folded
-forward takes and its tally."""
+kernels' mapping at the benchmark cells' shapes; the route a folded
+block's conv takes (``block_conv``) and its tally."""
 
 import types
 
@@ -12,7 +12,6 @@ import torch
 import torch.nn.functional as F
 
 from pilotguru_tpu_torch.ml import conv_kernel as ck
-from pilotguru_tpu_torch.ml import folded
 
 # Each conv of the two foldable nets: (input channels a net, output channels
 # a net, kernel, stride, input height, width, shared). A trunk's first conv
@@ -138,7 +137,7 @@ def test_the_route_follows_device_dtype_and_mode(device, dtype, train, want):
     backward; a CPU float32 one, a CUDA bfloat16 one and eval take
     ``F.conv2d``."""
     x = types.SimpleNamespace(is_cuda=device == "cuda", dtype=dtype)
-    assert folded.hand_conv_backward(x, train) is want
+    assert ck.hand_backward(x, train) is want
 
 
 def _step(net, nets, batch, hand, monkeypatch):
@@ -148,7 +147,7 @@ def _step(net, nets, batch, hand, monkeypatch):
     from pilotguru_tpu_torch.ml import augmentation, models, training
     from pilotguru_tpu_torch.utils import profiling
 
-    monkeypatch.setattr(folded, "hand_conv_backward", lambda x, train: hand and train)
+    monkeypatch.setattr(ck, "hand_backward", lambda x, train: hand and train)
     height, width = (66, 200) if net == "nvidia" else (100, 300)
     options = {"net_name": net, "net_head_dims": 10, "label_dimensions": 1,
                "dropout_prob": 0.0, "compute_dtype": "float32"}

@@ -843,11 +843,11 @@ def _folded_step(cuda, net, hand, monkeypatch, batch=256):
     """One folded x3 float32 SGD step on the card, its convs' backward
     through the kernels (``hand``) or cuDNN's deterministic algorithms:
     (losses, each leaf's gradient, the tallies, the conv launches)."""
-    from pilotguru_tpu_torch.ml import augmentation, conv_kernel, folded, models, training
+    from pilotguru_tpu_torch.ml import augmentation, conv_kernel, models, training
     from pilotguru_tpu_torch.utils import profiling
 
     if not hand:
-        monkeypatch.setattr(folded, "hand_conv_backward", lambda x, train: False)
+        monkeypatch.setattr(conv_kernel, "hand_backward", lambda x, train: False)
     height, width = (66, 200) if net == "nvidia" else (100, 300)
     options = {"net_name": net, "net_head_dims": 10, "label_dimensions": 1,
                "dropout_prob": 0.0, "compute_dtype": "float32"}

@@ -282,7 +282,16 @@ def test_block_dropout_masks_of_a_two_block_split(case):
                                        atol=1e-5 * float(whole.abs().max()))
 
 
+def _blocks(conv_activation="relu", conv_dropout="2d"):
+    """Layer block options: the defaults but the conv blocks' activation and
+    dropout kind."""
+    return {"conv": {"batchnorm": True, "activation": conv_activation, "dropout": conv_dropout},
+            "fc": {"batchnorm": True, "activation": "relu", "dropout": "vanilla"}}
+
+
 def test_foldable_takes_rambo_and_pilotnet_only():
+    """Rambo and PilotNet fold (PilotNet with dropout too); other nets, a
+    SELU PilotNet and a PilotNet whose conv dropout is vanilla do not."""
     for name, shape in (("nvidia", (66, 200, 3)), ("rambo", SHAPE)):
         assert folded.foldable(models.make_network(dict(_options(), net_name=name), BIAS, shape))
     for name in ("toy", "nvidia-deep", "rambo-comma", "rambo-nvidia-deep",
@@ -290,6 +299,41 @@ def test_foldable_takes_rambo_and_pilotnet_only():
         shape = (66, 200, 3) if name == "toy" else SHAPE
         assert not folded.foldable(models.make_network(dict(_options(), net_name=name), BIAS,
                                                        shape)), name
+    pilotnet = dict(_options(0.5), net_name="nvidia")
+    assert folded.foldable(models.make_network(pilotnet, BIAS, (66, 200, 3)))
+    for blocks in (_blocks(conv_activation="selu"), _blocks(conv_dropout="vanilla")):
+        assert not folded.foldable(models.make_network(
+            dict(pilotnet, layer_blocks_options=blocks), BIAS, (66, 200, 3))), blocks
+
+
+def test_a_selu_pilotnet_trains_per_net():
+    """A SELU PilotNet, which the fold does not compute, takes the per-net
+    path in a CPU train step: ``train.per_net_forwards`` tallies each net,
+    and no folded tally appears."""
+    from pilotguru_tpu_torch.utils import profiling
+
+    options = dict(_options(0.5), net_name="nvidia",
+                   layer_blocks_options=_blocks(conv_activation="selu"))
+    model = models.make_network(options, BIAS, (66, 200, 3))
+    tx = training.make_optimizer("sgd", 1e-3)
+    state = training.init_ensemble(model, {}, NETS, tx, seed=1)
+    settings = training.TrainSettings(epochs=1, batch_size=BATCH,
+                                      augment=augmentation.AugmentSettings(target_width=200))
+    rng = np.random.default_rng(6)
+    inputs = {"frame_img": torch.as_tensor(rng.integers(0, 256, (BATCH, 66, 200, 3),
+                                                        dtype=np.uint8)),
+              "forward_axis": torch.as_tensor(rng.normal(size=(BATCH, 3)).astype(np.float32))}
+    labels = torch.as_tensor(rng.normal(0, 0.3, (BATCH, 1)).astype(np.float32))
+    timer = profiling.StageTimer("step")
+    with profiling.recording(timer):
+        new, losses, _ = training.make_train_step(model, tx, settings)(
+            state, inputs, labels, torch.ones((NETS, BATCH)), torch.ones(NETS, dtype=torch.bool),
+            torch.Generator().manual_seed(0))
+    assert timer.tallies.get("train.per_net_forwards") == NETS
+    assert not any(name.startswith("folded.") for name in timer.tallies)
+    assert torch.isfinite(losses).all() and losses.shape == (NETS,)
+    assert not torch.equal(new.params["ConvBlock_0"]["Conv_0"]["kernel"],
+                           state.params["ConvBlock_0"]["Conv_0"]["kernel"])
 
 
 def _np_tree(tree):
