@@ -62,6 +62,7 @@ from torch.func import functional_call
 from pilotguru_tpu_torch.ml import convert, folded
 from pilotguru_tpu_torch.ml import data as data_lib
 from pilotguru_tpu_torch.ml import models as models_lib
+from pilotguru_tpu_torch.ml import staging as staging_lib
 from pilotguru_tpu_torch.ml.augmentation import (
     AugmentSettings,
     augment_batch,
@@ -448,13 +449,23 @@ def train_models(
     bookkeeping (weights [N, B], skip mask, lr_scale, plateau counters,
     losses) is sliced by block and gathered back in net order.
 
+    The batches reach the devices through ml/staging.py (``open_staging``:
+    on CUDA devices a worker thread gathers the next batches into pinned
+    buffers and copy streams send them; elsewhere the batch is gathered and
+    copied when it is staged). The host draws each epoch's permutation and
+    use masks in the JAX package's order, an epoch ahead, so that the next
+    epoch's first batches are gathered while an epoch ends.
+
     Under ``utils.profiling.recording(timer)`` the loop records spans:
     ``train.epoch`` (attribute ``epoch``) around ``train.batch`` (the next
-    batch's host gather, weights and copies), ``train.step`` (the step's
+    batch's weights, its gather or the wait for it, and its copies
+    queued), ``train.step`` (the step's
     dispatch) and ``train.epoch_end`` (``train.pull``, ``train.validate``,
     ``train.checkpoint``, ``train.log``), then ``train.checkpoint`` for the
     last saves; and tallies ``train.steps``, ``train.skipped_batches``,
-    ``train.val_batches``, ``train.checkpoints`` and ``train.h2d_bytes``.
+    ``train.val_batches``, ``train.checkpoints``, and ml/staging.py's
+    ``train.h2d_bytes`` (and on CUDA devices ``train.h2d_pinned_bytes`` and
+    ``train.staging_waits``).
     Without a recorder nothing is recorded; what the loop computes and
     writes is the same either way."""
     num_nets = len(weighters)
@@ -475,25 +486,10 @@ def train_models(
     else:
         blocks = [(0, num_nets, device, state)]
     sharded = len(blocks) > 1
-    block_devices = list(dict.fromkeys(dev for _, _, dev, _ in blocks))
     folded_dropout = sharded and folded.foldable(model)
 
     num_train = train_data[label_name].shape[0]
     num_val = val_data[label_name].shape[0]
-
-    def gather_batch(dataset, idx):
-        """The batch on every block's device (one host-to-device copy a
-        device). Frame images stay uint8 through the copy; the steps convert
-        them on the device."""
-        inputs = {name: torch.as_tensor(dataset[name][idx]) for name in input_names}
-        labels = np.asarray(dataset[label_name][idx], np.float32)
-        if labels.ndim == 1:
-            labels = labels[:, None]
-        labels = torch.as_tensor(labels)
-        profiling.count("train.h2d_bytes", len(block_devices) * (
-            labels.nbytes + sum(v.nbytes for v in inputs.values())))
-        return {dev: ({k: v.to(dev, non_blocking=True) for k, v in inputs.items()},
-                      labels.to(dev, non_blocking=True)) for dev in block_devices}
 
     log: List[TrainLogEvent] = []
     min_val_losses = np.full((num_nets,), np.inf)
@@ -506,35 +502,29 @@ def train_models(
         os.makedirs(os.path.dirname(log_path) or ".", exist_ok=True)
     log_file = open(log_path, "a") if log_path else None
 
-    def stage_batch(idx):
-        """Batch k + 1 gathered and sent to the devices before step k is
-        dispatched: the gather overlaps step k - 1 on the device, and each
-        copy, from pageable memory, returns once the stream has drained."""
+    def stage_batch(staging, idx, use_mask):
+        """Batch k + 1 staged before step k is dispatched (ml/staging.py):
+        its rows, its weights and its use mask on the devices."""
         with profiling.stage("train.batch"):
-            batch = gather_batch(train_data, idx)
             weights = np.stack([w.get_weights(idx) for w in weighters]).astype(np.float32)
-            use_mask = host_rng.uniform(size=num_nets) < settings.batch_use_prob
-            profiling.count("train.h2d_bytes", weights.nbytes)
-            weights = [torch.as_tensor(weights[lo:hi]).to(dev, non_blocking=True)
-                       for lo, hi, dev, _ in blocks]
-        return batch, weights, use_mask, idx
+            return staging.send(weights, use_mask)
 
-    def run_train_step(batch, weights, use_mask):
-        """Every block's step; returns (losses [N], per_example [N, B]) on
-        the state's device."""
+    def run_train_step(staged):
+        """Every block's step on the staged batch; returns (losses [N],
+        per_example [N, B]) on the state's device."""
+        staged.wait()
         draws = masks = None
         if sharded:
-            size = next(iter(batch.values()))[1].shape[0]
+            size = next(iter(staged.batch.values()))[1].shape[0]
             draws = draw_augmentation(generator, size, settings.augment, device)
             if folded_dropout:
                 masks = folded.ensemble_dropout_masks(model, blocks[0][3].params, num_nets,
                                                       size, generator)
         results = []
         for b, (lo, hi, dev, part) in enumerate(blocks):
-            inputs, labels = batch[dev]
+            inputs, labels = staged.batch[dev]
             part, losses, per_example = train_step(
-                part, inputs, labels, weights[b], torch.as_tensor(use_mask[lo:hi], device=dev),
-                generator,
+                part, inputs, labels, staged.weights[b], staged.masks[b], generator,
                 draws=None if draws is None else type(draws)(
                     *(None if t is None else t.to(dev) for t in draws)),
                 dropout_masks=None if masks is None else folded.block_dropout_masks(
@@ -545,107 +535,137 @@ def train_models(
             return results[0]
         return gather_leading_axis(results, device)
 
-    for epoch in range(settings.epochs):
-        with profiling.stage("train.epoch", epoch=epoch):
-            epoch_start = time.time()
-            running = np.zeros((num_nets,))
-            seen = np.zeros((num_nets,), np.int64)
-            # Per-step results stay on the device during the epoch; the pulls
-            # and the weighters' registration come at its end, in step order
-            # (a weighter's weights change only at step()).
-            pending: List[tuple] = []
-            batch_iter = data_lib.batches(num_train, settings.batch_size, host_rng)
-            nxt = next(batch_iter, None)
-            staged = stage_batch(nxt) if nxt is not None else None
-            while staged is not None:
-                batch, weights, use_mask, idx = staged
-                nxt = next(batch_iter, None)
-                staged = stage_batch(nxt) if nxt is not None else None
-                if not use_mask.any():
-                    profiling.count("train.skipped_batches")
-                    continue
-                with profiling.stage("train.step"):
-                    losses, per_example = run_train_step(batch, weights, use_mask)
-                profiling.count("train.steps")
-                pending.append((idx, use_mask, losses, per_example))
-            with profiling.stage("train.epoch_end"):
-                with profiling.stage("train.pull"):
-                    for idx, use_mask, losses, per_example in pending:
-                        losses_np = losses.cpu().numpy()
-                        per_example_np = per_example.cpu().numpy()
-                        for n, w in enumerate(weighters):
-                            if use_mask[n]:
-                                w.register_losses(idx, per_example_np[n])
-                                running[n] += losses_np[n] * len(idx)
-                                seen[n] += len(idx)
-                    epoch_duration = time.time() - epoch_start
-                    examples_per_sec = float(seen.sum()) / max(epoch_duration, 1e-9)
-                    avg_loss = float(running.sum() / max(seen.sum(), 1))
+    def draw_epoch(staging):
+        """The host's draws for an epoch, in the JAX package's order (its
+        permutation, then each batch's use mask): the batch count and the
+        (indices, use mask) of each batch to stage, planned with the
+        staging."""
+        order = list(data_lib.batches(num_train, settings.batch_size, host_rng))
+        use_masks = [host_rng.uniform(size=num_nets) < settings.batch_use_prob for _ in order]
+        kept = [(idx, use_mask) for idx, use_mask in zip(order, use_masks)
+                if staging.stages_skipped or use_mask.any()]
+        staging.plan(train_data, [idx for idx, _ in kept])
+        return len(order), kept
 
-                    for w in weighters:
-                        w.step()
+    val_order = list(data_lib.batches(num_val, settings.batch_size, None))
+    with staging_lib.open_staging(input_names, label_name,
+                                  [(lo, hi, dev) for lo, hi, dev, _ in blocks],
+                                  settings.batch_size) as staging:
+        upcoming = draw_epoch(staging) if settings.epochs > 0 else None
+        for epoch in range(settings.epochs):
+            with profiling.stage("train.epoch", epoch=epoch):
+                epoch_start = time.time()
+                running = np.zeros((num_nets,))
+                seen = np.zeros((num_nets,), np.int64)
+                # Per-step results stay on the device during the epoch; the pulls
+                # and the weighters' registration come at its end, in step order
+                # (a weighter's weights change only at step()).
+                pending: List[tuple] = []
+                # This epoch's validation, then the next epoch's batches, are
+                # planned behind this epoch's (so staged while it ends).
+                num_batches, train_batches = upcoming
+                if len(train_batches) < num_batches:
+                    profiling.count("train.skipped_batches", num_batches - len(train_batches))
+                staging.plan(val_data, val_order)
+                if epoch + 1 < settings.epochs:
+                    upcoming = draw_epoch(staging)
+                staged = stage_batch(staging, *train_batches[0]) if train_batches else None
+                for k, (idx, use_mask) in enumerate(train_batches):
+                    current = staged
+                    if k + 1 < len(train_batches):
+                        staged = stage_batch(staging, *train_batches[k + 1])
+                    if not use_mask.any():
+                        profiling.count("train.skipped_batches")
+                        continue
+                    with profiling.stage("train.step"):
+                        losses, per_example = run_train_step(current)
+                    profiling.count("train.steps")
+                    pending.append((idx, use_mask, losses, per_example))
+                with profiling.stage("train.epoch_end"):
+                    with profiling.stage("train.pull"):
+                        for idx, use_mask, losses, per_example in pending:
+                            losses_np = losses.cpu().numpy()
+                            per_example_np = per_example.cpu().numpy()
+                            for n, w in enumerate(weighters):
+                                if use_mask[n]:
+                                    w.register_losses(idx, per_example_np[n])
+                                    running[n] += losses_np[n] * len(idx)
+                                    seen[n] += len(idx)
+                        epoch_duration = time.time() - epoch_start
+                        examples_per_sec = float(seen.sum()) / max(epoch_duration, 1e-9)
+                        avg_loss = float(running.sum() / max(seen.sum(), 1))
 
-                with profiling.stage("train.validate"):
-                    val_total = np.zeros((num_nets,))
-                    for idx in data_lib.batches(num_val, settings.batch_size, None):
-                        batch = gather_batch(val_data, idx)
-                        val_losses = [eval_step(part, *batch[dev]) for _, _, dev, part in blocks]
-                        val_total += torch.cat(
-                            [v.to(device) for v in val_losses]).cpu().numpy() * len(idx)
-                        profiling.count("train.val_batches")
-                    val_avg = val_total / max(num_val, 1)
-                    val_avg_all = float(val_avg.mean())
+                        for w in weighters:
+                            w.step()
 
-                marker = ""
-                if val_avg_all < min_val_loss:
-                    marker = " ***"
-                    min_val_loss = val_avg_all
-                elif val_avg_all * 0.9 < min_val_loss:
-                    marker = " *"
+                    with profiling.stage("train.validate"):
+                        val_losses = []
+                        for _ in val_order:
+                            staged = staging.send()
+                            staged.wait()
+                            val_losses.append(torch.cat([
+                                eval_step(part, *staged.batch[dev]).to(device)
+                                for _, _, dev, part in blocks]))
+                            profiling.count("train.val_batches")
+                        # One pull, summed on the host in batch order.
+                        val_total = np.zeros((num_nets,))
+                        if val_losses:
+                            for losses_np, idx in zip(torch.stack(val_losses).cpu().numpy(),
+                                                      val_order):
+                                val_total += losses_np * len(idx)
+                        val_avg = val_total / max(num_val, 1)
+                        val_avg_all = float(val_avg.mean())
 
-                with profiling.stage("train.checkpoint"):
-                    for n in range(num_nets):
-                        if val_avg[n] < min_val_losses[n]:
-                            min_val_losses[n] = val_avg[n]
-                            plateau_counters[n] = 0
-                            spec_dir, spec_idx = net_out_specs[n]
-                            _save_from_block(blocks, n, data_lib.model_file_name(
-                                spec_dir, spec_idx, data_lib.BEST))
-                            profiling.count("train.checkpoints")
-                        elif settings.plateau_patience_epochs > 0:
-                            plateau_counters[n] += 1
-                            if plateau_counters[n] > settings.plateau_patience_epochs:
-                                lr_scale[n] *= 0.5
+                    marker = ""
+                    if val_avg_all < min_val_loss:
+                        marker = " ***"
+                        min_val_loss = val_avg_all
+                    elif val_avg_all * 0.9 < min_val_loss:
+                        marker = " *"
+
+                    with profiling.stage("train.checkpoint"):
+                        for n in range(num_nets):
+                            if val_avg[n] < min_val_losses[n]:
+                                min_val_losses[n] = val_avg[n]
                                 plateau_counters[n] = 0
-                blocks = [(lo, hi, dev, part._replace(
-                    lr_scale=torch.as_tensor(lr_scale[lo:hi], device=dev)))
-                    for lo, hi, dev, part in blocks]
+                                spec_dir, spec_idx = net_out_specs[n]
+                                _save_from_block(blocks, n, data_lib.model_file_name(
+                                    spec_dir, spec_idx, data_lib.BEST))
+                                profiling.count("train.checkpoints")
+                            elif settings.plateau_patience_epochs > 0:
+                                plateau_counters[n] += 1
+                                if plateau_counters[n] > settings.plateau_patience_epochs:
+                                    lr_scale[n] *= 0.5
+                                    plateau_counters[n] = 0
+                    blocks = [(lo, hi, dev, part._replace(
+                        lr_scale=torch.as_tensor(lr_scale[lo:hi], device=dev)))
+                        for lo, hi, dev, part in blocks]
 
-                with profiling.stage("train.log"):
-                    event = TrainLogEvent(
-                        epoch, avg_loss, val_avg_all, epoch_duration, examples_per_sec,
-                        train_loss_per_net=list(np.round(running / np.maximum(seen, 1), 8)),
-                        val_loss_per_net=list(np.round(val_avg, 8)),
-                        improvement_marker=marker.strip(),
-                        lr_scale_per_net=[float(s) for s in lr_scale],
-                    )
-                    log.append(event)
-                    if print_log:
-                        print(
-                            f"Epoch {epoch};  loss {avg_loss:g};  val loss: {val_avg_all:g};  "
-                            f"{epoch_duration:0.2f} sec/epoch; "
-                            f"{examples_per_sec:0.2f} examples/sec{marker}"
+                    with profiling.stage("train.log"):
+                        event = TrainLogEvent(
+                            epoch, avg_loss, val_avg_all, epoch_duration, examples_per_sec,
+                            train_loss_per_net=list(np.round(running / np.maximum(seen, 1), 8)),
+                            val_loss_per_net=list(np.round(val_avg, 8)),
+                            improvement_marker=marker.strip(),
+                            lr_scale_per_net=[float(s) for s in lr_scale],
                         )
-                    if log_file:
-                        log_file.write(json.dumps(event.__dict__) + "\n")
-                        log_file.flush()
+                        log.append(event)
+                        if print_log:
+                            print(
+                                f"Epoch {epoch};  loss {avg_loss:g};  val loss: {val_avg_all:g};  "
+                                f"{epoch_duration:0.2f} sec/epoch; "
+                                f"{examples_per_sec:0.2f} examples/sec{marker}"
+                            )
+                        if log_file:
+                            log_file.write(json.dumps(event.__dict__) + "\n")
+                            log_file.flush()
 
-    with profiling.stage("train.checkpoint"):
-        for n in range(num_nets):
-            spec_dir, spec_idx = net_out_specs[n]
-            _save_from_block(blocks, n, data_lib.model_file_name(spec_dir, spec_idx,
-                                                                 data_lib.LAST))
-            profiling.count("train.checkpoints")
+        with profiling.stage("train.checkpoint"):
+            for n in range(num_nets):
+                spec_dir, spec_idx = net_out_specs[n]
+                _save_from_block(blocks, n, data_lib.model_file_name(spec_dir, spec_idx,
+                                                                     data_lib.LAST))
+                profiling.count("train.checkpoints")
     if log_file:
         log_file.close()
     return log

@@ -18,8 +18,9 @@ nothing when none is installed. The training loop records so
 
 - ``search.setup`` (the group's model, init, preload and weighters) and
   ``search.fold_logs`` (the per-fold logs written after training);
-- ``train.epoch``, holding ``train.batch`` (the next batch gathered on the
-  host, its weights and the host-to-device copies), ``train.step`` (the
+- ``train.epoch``, holding ``train.batch`` (the next batch's weights, its
+  rows gathered on the host or, on CUDA devices, the wait for the worker
+  that gathers them, and the host-to-device copies), ``train.step`` (the
   host's dispatch of the train step) and ``train.epoch_end``, which holds
   ``train.pull`` (losses to the host, the weighters' registration and
   step), ``train.validate``, ``train.checkpoint`` (best saves) and
@@ -27,7 +28,9 @@ nothing when none is installed. The training loop records so
 - tallies ``train.steps``, ``train.skipped_batches`` (a batch no net
   trains on), ``train.val_batches``, ``train.checkpoints`` and
   ``train.h2d_bytes`` (the batch inputs, labels and weights handed to the
-  devices).
+  devices); on CUDA devices also ``train.h2d_pinned_bytes`` (those bytes
+  sent from pinned buffers on a copy stream) and ``train.staging_waits``
+  (the host waiting for a staged batch; ml/staging.py).
 
 Setting PILOTGURU_TPU_PROFILE_DIR captures a ``torch.profiler`` trace
 (Chrome trace JSON, viewable in Perfetto) around a region wrapped in
